@@ -30,25 +30,31 @@ INT32_MAX = 2 ** 31 - 1
 CHUNK = 512          # KV chunk of ``chunked_attention`` in the module's calls
 
 
-def _mask_bias(q_pos, k_pos, window: int = 0, k_valid=None):
+def _mask_bias(q_pos, k_pos, window: int = 0, k_valid=None, q_seg=None,
+               k_seg=None):
     """fp32 additive mask: causal (+ sliding window) from explicit positions.
-    q_pos: (..., Tq), k_pos: (..., Tk) -> (..., Tq, Tk)."""
+    q_pos: (..., Tq), k_pos: (..., Tk) -> (..., Tq, Tk).  ``q_seg``/``k_seg``:
+    optional segment ids of packed rows; attention then also needs
+    seg_q == seg_k."""
     ok = q_pos[..., :, None] >= k_pos[..., None, :]
     if window > 0:
         ok &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
     if k_valid is not None:
         ok &= k_valid[..., None, :]
+    if q_seg is not None:
+        ok &= q_seg[..., :, None] == k_seg[..., None, :]
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, NEG_INF)
 
 
 def chunked_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
-                      k_valid=None, chunk: int = 512):
+                      k_valid=None, chunk: int = 512, q_seg=None, k_seg=None):
     """Flash-style GQA attention over KV chunks.
 
     q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d), Hq % Hkv == 0 (the KV repeat
     stays inside the einsum).  q_pos: (B, Tq) or (Tq,); k_pos likewise for
-    Tk.  Returns (B, Hq, Tq, dv) in v.dtype."""
+    Tk; ``q_seg``/``k_seg`` likewise, optional (packed rows).  Returns
+    (B, Hq, Tq, dv) in v.dtype."""
     B, Hq, Tq, d = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     if Hq % Hkv:
@@ -62,12 +68,16 @@ def chunked_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
     kp = torch.broadcast_to(k_pos, (B, Tk))
     kv_valid = (torch.ones((B, Tk), dtype=torch.bool, device=dev)
                 if k_valid is None else torch.broadcast_to(k_valid, (B, Tk)))
+    ks = None if k_seg is None else torch.broadcast_to(k_seg, (B, Tk))
     if pad:
         k = nn.functional.pad(k, (0, 0, 0, pad))
         v = nn.functional.pad(v, (0, 0, 0, pad))
         kp = nn.functional.pad(kp, (0, pad), value=INT32_MAX)
         kv_valid = nn.functional.pad(kv_valid, (0, pad), value=False)
+        if ks is not None:
+            ks = nn.functional.pad(ks, (0, pad), value=-1)
     qp = torch.broadcast_to(q_pos, (B, Tq))
+    qs = None if q_seg is None else torch.broadcast_to(q_seg, (B, Tq))
     qf = q.reshape(B, Hkv, R, Tq, d).float()
 
     m = torch.full((B, Hkv, R, Tq), NEG_INF, dtype=torch.float32, device=dev)
@@ -77,7 +87,9 @@ def chunked_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
         sl = slice(c * chunk, (c + 1) * chunk)
         s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k[:, :, sl].float()) * scale
         bias = _mask_bias(qp[:, None, None], kp[:, None, None, sl], window,
-                          kv_valid[:, None, None, sl])
+                          kv_valid[:, None, None, sl],
+                          None if qs is None else qs[:, None, None],
+                          None if qs is None else ks[:, None, None, sl])
         s = s + bias
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -91,9 +103,9 @@ def chunked_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
 
 
 def gqa_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
-                  k_valid=None):
+                  k_valid=None, q_seg=None, k_seg=None):
     """Direct (unchunked) GQA attention.  q: (B, Hq, Tq, d); k, v:
-    (B, Hkv, Tk, d)."""
+    (B, Hkv, Tk, d); ``q_seg``/``k_seg`` optional (packed rows)."""
     B, Hq, Tq, d = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     R = Hq // Hkv
@@ -104,7 +116,12 @@ def gqa_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
     kp = torch.broadcast_to(k_pos, (B, Tk))
     kv = (None if k_valid is None
           else torch.broadcast_to(k_valid, (B, Tk))[:, None, None])
-    s = s + _mask_bias(qp[:, None, None], kp[:, None, None], window, kv)
+    qs = (None if q_seg is None
+          else torch.broadcast_to(q_seg, (B, Tq))[:, None, None])
+    ks = (None if k_seg is None
+          else torch.broadcast_to(k_seg, (B, Tk))[:, None, None])
+    s = s + _mask_bias(qp[:, None, None], kp[:, None, None], window, kv,
+                       qs, ks)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
@@ -177,8 +194,13 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(B, T, H * d)
         return out.to(cd) @ self.wo.to(cd)
 
-    def forward(self, x, positions=None):
-        """Training / prefill-style full forward.  x: (B, T, h)."""
+    def forward(self, x, positions=None, segments=None):
+        """Training / prefill-style full forward.  x: (B, T, h).
+
+        ``segments``: optional (B, T) document ids of packed rows.  Their
+        ``positions`` restart at every document (RoPE), so causality takes
+        the packed order and seg_q == seg_k keeps attention inside the
+        document."""
         c = self.cfg
         B, T, _ = x.shape
         if positions is None:
@@ -186,8 +208,14 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self._qkv(x)
         q = self._rope(q, positions)
         k = self._rope(k, positions)
-        out = chunked_attention(q, k, v, positions, positions, self._scale,
-                                window=c.window, chunk=CHUNK)
+        if segments is None:
+            out = chunked_attention(q, k, v, positions, positions,
+                                    self._scale, window=c.window, chunk=CHUNK)
+        else:
+            packed = torch.arange(T, device=x.device).expand(B, T)
+            out = chunked_attention(q, k, v, packed, packed, self._scale,
+                                    window=c.window, chunk=CHUNK,
+                                    q_seg=segments, k_seg=segments)
         return self._out(out)
 
     # ---- serving ----

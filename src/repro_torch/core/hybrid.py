@@ -49,6 +49,19 @@ class HybridAttention(nn.Module):
         if self.dense is not None:
             self.dense.init(generator)
 
+    def forward(self, x, positions=None, segments=None):
+        """x: (B, T, h) -> sparse + dense heads' outputs.  ``segments``:
+        optional (B, T) document ids of packed rows (both sides mask
+        cross-document attention)."""
+        y = self.sparse(x, positions, segments=segments)
+        if self.dense is not None:
+            y = y + self.dense(x, positions, segments)
+        return y
+
+    def router_health(self, x):
+        """Expert-choice health of the sparse side (train telemetry)."""
+        return self.sparse.router_health(x)
+
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    paged: PagedConfig | None = None, device=None):

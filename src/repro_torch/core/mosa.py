@@ -8,9 +8,12 @@ RoPE at the original positions; outputs scaled by the router score and
 scatter-added back to the sequence.
 
 ``impl="kernel"`` runs the inner attention through
-``repro_torch.kernels.mosa_attention.mosa_attention`` (the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors); ``impl="einsum"`` is the
-port of the JAX package's XLA path in plain PyTorch.  Block-choice
+``repro_torch.kernels.mosa_attention.mosa_attention``: the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors, and under autograd the
+``torch.autograd.Function`` of ``kernels.mosa_vjp``, whose backward
+returns dq, dk, dv and the router-score gradient dr (through it, and the
+gather of the selected scores, the router weights learn).  ``impl="einsum"``
+is the port of the JAX package's XLA path in plain PyTorch.  Block-choice
 selection is not ported yet.
 """
 
@@ -22,8 +25,9 @@ from torch import nn
 from repro_torch.configs.base import MoSAConfig
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.kv_cache import MoSAKVCache
-from repro_torch.core.router import (ExpertChoiceRouter, select_topk,
-                                     selection_mask, streaming_topk_update)
+from repro_torch.core.router import (ExpertChoiceRouter, router_health_stats,
+                                     select_topk, selection_mask,
+                                     streaming_topk_update)
 from repro_torch.kernels import mosa_attention as kmosa
 from repro_torch.nn.layers import param, trunc_normal_
 
@@ -84,10 +88,13 @@ class MoSAAttention(nn.Module):
                                    self.rotary_frac)
 
     # ------------------------------------------------------------------ call
-    def forward(self, x, positions=None, valid=None):
+    def forward(self, x, positions=None, valid=None, segments=None):
         """x: (B, T, h) -> (B, T, h).  ``valid``: optional (B, T) bool,
         False for right-pad tokens, which are kept out of the selection
-        (their scores drop to -1.0) and contribute nothing."""
+        (their scores drop to -1.0) and contribute nothing.  ``segments``:
+        optional (B, T) document ids of packed rows; the k x k attention
+        then also needs seg_q == seg_k (selection stays row-global), and
+        ``positions`` should restart at every document."""
         c, cd = self.cfg, self.compute_dtype
         B, T, h = x.shape
         k = self.k_for(T)
@@ -110,12 +117,19 @@ class MoSAAttention(nn.Module):
         kk = self._rope(self._proj(xs, self.wk), pos_sel)
         v = self._proj(xs, self.wv)
 
+        seg_sel = None
+        if segments is not None:
+            seg_sel = torch.gather(segments[:, None].expand(B, idx.shape[1], T),
+                                   -1, idx)
+
         if self.impl == "kernel":
             att = kmosa.mosa_attention(
                 q.contiguous(), kk.contiguous(), v.contiguous(),
-                idx.to(torch.int32), r.float().contiguous())
+                idx.to(torch.int32), r.float().contiguous(),
+                seg=None if seg_sel is None
+                else seg_sel.to(torch.int32).contiguous())
         else:
-            att = self._einsum_attention(q, kk, v, idx, r)
+            att = self._einsum_attention(q, kk, v, idx, r, seg_sel)
 
         y_heads = torch.einsum("bnkd,ndh->bnkh", att.to(cd), self.wo.to(cd))
         # scatter-add every head's rows back to their original positions
@@ -124,15 +138,27 @@ class MoSAAttention(nn.Module):
         y.index_add_(0, flat.reshape(-1), y_heads.reshape(-1, h))
         return y.reshape(B, T, h)
 
-    def _einsum_attention(self, q, k, v, idx, r):
-        """Reference attention over selected tokens.  All inputs (B,H,k,*)."""
+    def _einsum_attention(self, q, k, v, idx, r, seg=None):
+        """Reference attention over selected tokens.  All inputs (B,H,k,*);
+        ``seg``: optional segment ids of the selected tokens."""
         scale = self.cfg.d_head ** -0.5
         s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
-        s = torch.where(selection_mask(idx, idx), s, NEG_INF)
+        mask = selection_mask(idx, idx)
+        if seg is not None:
+            mask &= seg[..., :, None] == seg[..., None, :]
+        s = torch.where(mask, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         att = torch.einsum("bnqk,bnkd->bnqd", p.to(v.dtype).float(),
                            v.float())
         return att * r[..., None]
+
+    def router_health(self, x):
+        """Router health of this layer's selection on input ``x`` (see
+        ``router_health_stats``)."""
+        T = x.shape[1]
+        r, idx = select_topk(self.router.scores(x), self.k_for(T),
+                             self.cfg.force_first_token)
+        return router_health_stats(r, idx, T)
 
     # --------------------------------------------------------------- serving
     def prefill(self, x, cache: MoSAKVCache, positions=None, valid=None):

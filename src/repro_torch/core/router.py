@@ -3,13 +3,16 @@
 Each MoSA head owns one router vector; scores are the non-competitive
 sigmoid ``r = sigmoid(X W^r)`` in fp32, and each head selects its top-k
 tokens (expert choice: exactly k per head).  ``streaming_topk_update`` is
-the serving-time evict-min policy behind ``MoSAKVCache``.
+the serving-time evict-min policy behind ``MoSAKVCache``;
+``router_health_stats`` is the train loop's telemetry of one selection.
 
 Indices are ``torch.long`` on the Python side (they index tensors);
 kernels take them as int32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -55,6 +58,27 @@ def select_topk(scores, k: int, force_first: bool = True):
     idx = torch.sort(idx, dim=-1).values
     r = torch.gather(scores, -1, idx)
     return r, idx
+
+
+def router_health_stats(r, idx, T: int):
+    """Health of one expert-choice selection (train-loop telemetry), as
+    ``repro.core.router.router_health_stats``.  r, idx: (B, H, k) from
+    ``select_topk`` over (B, H, T) scores.  Returns 0-d fp32 tensors:
+
+      * ``sel_entropy`` — entropy of the aggregate selection distribution
+        over positions, normalized by log T (low = heads concentrate on
+        few tokens: router collapse);
+      * ``drop_rate``   — fraction of tokens selected by no head (they get
+        no sparse output and no router gradient this step);
+      * ``head_util``   — mean router score over selected tokens."""
+    B, H, k = idx.shape
+    sel = torch.zeros((B, H, T), dtype=torch.float32, device=idx.device)
+    sel.scatter_add_(-1, idx.long(), torch.ones_like(sel[..., :k]))
+    drop_rate = (sel.sum(1) == 0).float().mean()
+    p = sel.sum((0, 1)) / (B * H * k)
+    ent = -torch.where(p > 0, p * torch.log(p.clamp_min(1e-20)), 0.0).sum()
+    return {"sel_entropy": ent / math.log(float(max(T, 2))),
+            "drop_rate": drop_rate, "head_util": r.float().mean()}
 
 
 def selection_mask(idx_q, idx_k):

@@ -1,9 +1,11 @@
 // MoSA attention over the expert-choice-selected tokens, written by hand for
 // Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_mosa_kernel` (src/repro/kernels/mosa_attention.py:55,
-// launched by `mosa_attention_pallas`, :163).  For every (batch, head) row
-// of S selected tokens it computes
+// Replaces two TPU kernels of src/repro/kernels/mosa_attention.py: `_mosa_kernel`
+// (:55, launched by `mosa_attention_pallas`, :163) and, as the `kResiduals`
+// form of the same template, `_mosa_fwd_res_kernel` (:110, launched by
+// `mosa_attention_fwd_res`, :204).  For every (batch, head) row of S
+// selected tokens it computes
 //
 //   o[q] = r[q] * sum_k softmax_k(scale * q.k  masked) v[k],
 //   mask = seg_q == seg_k  &&  idx_q >= idx_k  &&  idx_k >= 0,
@@ -12,6 +14,13 @@
 // fp32).  Masked scores are -1e30 and their probabilities are zeroed, and
 // the denominator is floored at 1e-30, so a row with no valid key (or
 // r == 0) gives exact zeros.  `seg == nullptr` means one segment.
+//
+// The training form (`kResiduals`) writes no `o`: it writes the residuals
+// the backward (mosa_backward.cu) needs, `o_pre[q] = o[q] / r[q]` in fp32
+// (not scaled by r, so it survives rows with r == 0: the router gradient
+// dr = rowsum(g * o_pre) needs it) and `lse[q] = m + log(max(l, 1e-30))`.
+// An empty row has m = -1e30, so its lse is ~-1e30 too; the backward
+// re-applies the mask rather than trusting exp(s - lse) there.
 //
 // What bounds it on an H100: at the serving shapes (S = k = 32 selected
 // tokens, d = 64) the work is ~S*S*d FMAs per row against 4*S*d elements
@@ -52,12 +61,14 @@ size_t smem_bytes(int rows, int d) {
          + sizeof(int) * (2 * kBlockK + 2 * rows);           // idx, seg
 }
 
-template <typename T>
+template <typename T, bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ idx,
                       const int* __restrict__ seg, const float* __restrict__ r,
-                      T* __restrict__ o, int S, int d, int rows, float scale) {
+                      T* __restrict__ o, float* __restrict__ o_pre,
+                      float* __restrict__ lse, int S, int d, int rows,
+                      float scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row stride of the key tile
   float* qs = smem;                     // [rows][d], pre-scaled
@@ -141,28 +152,37 @@ mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = o + (row0 + q0) * d;
-  for (int i = threadIdx.x; i < nq * d; i += kThreads) {
-    const int qi = i / d;
-    const float out = acc[i] / fmaxf(l[qi], 1e-30f) * r[row0 + q0 + qi];
-    store_as(ob + i, out);
+  if constexpr (kResiduals) {
+    float* ob = o_pre + (row0 + q0) * d;
+    for (int i = threadIdx.x; i < nq * d; i += kThreads)
+      ob[i] = acc[i] / fmaxf(l[i / d], 1e-30f);
+    for (int i = threadIdx.x; i < nq; i += kThreads)
+      lse[row0 + q0 + i] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  } else {
+    T* ob = o + (row0 + q0) * d;
+    for (int i = threadIdx.x; i < nq * d; i += kThreads) {
+      const int qi = i / d;
+      const float out = acc[i] / fmaxf(l[qi], 1e-30f) * r[row0 + q0 + qi];
+      store_as(ob + i, out);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kResiduals>
 int launch(const void* q, const void* k, const void* v, const void* idx,
-           const void* seg, const void* r, void* o, int BH, int S, int d,
-           float scale, cudaStream_t stream) {
+           const void* seg, const void* r, void* o, void* o_pre, void* lse,
+           int BH, int S, int d, float scale, cudaStream_t stream) {
   const int rows = S < kBlockQ ? S : kBlockQ;
   const size_t smem = smem_bytes(rows, d);
-  cudaError_t err = allow_smem(mosa_attention_kernel<T>, smem);
+  cudaError_t err = allow_smem(mosa_attention_kernel<T, kResiduals>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (S + kBlockQ - 1) / kBlockQ);
-  mosa_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  mosa_attention_kernel<T, kResiduals><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(r),
-      static_cast<T*>(o), S, d, rows, scale);
+      static_cast<T*>(o), static_cast<float*>(o_pre),
+      static_cast<float*>(lse), S, d, rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,8 +197,29 @@ extern "C" int repro_mosa_attention(const void* q, const void* k, const void* v,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return launch<float>(q, k, v, idx, seg, r, o, BH, S, d, scale, st);
+    return launch<float, false>(q, k, v, idx, seg, r, o, nullptr, nullptr, BH,
+                                S, d, scale, st);
   if (dtype == repro::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, idx, seg, r, o, BH, S, d, scale, st);
+    return launch<__nv_bfloat16, false>(q, k, v, idx, seg, r, o, nullptr,
+                                        nullptr, BH, S, d, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Training forward: q, k, v as above; o_pre: (BH, S, d) float32 and lse:
+// (BH, S) float32 are written (no router scaling, no `o`).  Returns
+// cudaGetLastError().
+extern "C" int repro_mosa_attention_fwd_res(const void* q, const void* k,
+                                            const void* v, const void* idx,
+                                            const void* seg, void* o_pre,
+                                            void* lse, int BH, int S, int d,
+                                            float scale, int dtype,
+                                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return launch<float, true>(q, k, v, idx, seg, nullptr, nullptr, o_pre,
+                               lse, BH, S, d, scale, st);
+  if (dtype == repro::kBFloat16)
+    return launch<__nv_bfloat16, true>(q, k, v, idx, seg, nullptr, nullptr,
+                                       o_pre, lse, BH, S, d, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

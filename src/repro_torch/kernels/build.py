@@ -41,6 +41,9 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (see the csrc sources).
 SIGNATURES = {
     "repro_mosa_attention": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_fwd_res": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_bwd_dkv": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
 }
 
@@ -157,5 +160,6 @@ def check_tensor(name, t, shape, dtype, device):
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad:
-        raise ValueError(f"{name} requires grad; the kernel has no backward "
-                         "yet (call it under torch.inference_mode())")
+        raise ValueError(f"{name} requires grad; a kernel takes no autograd "
+                         "inputs (differentiable calls go through "
+                         "repro_torch.kernels.mosa_vjp)")

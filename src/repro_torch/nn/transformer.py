@@ -1,10 +1,17 @@
-"""Transformer assembly: blocks, LM head, serving (port of
+"""Transformer assembly: blocks, LM head, loss, serving (port of
 ``repro.nn.transformer``).
 
 The JAX package scans a periodic run of layers over stacked parameters;
 here the layers are a plain ``nn.ModuleList`` walked by a Python loop, and
 the serving caches are a list with one entry per layer.  ``find_period``
 is kept: the weight converter needs it to unstack the JAX parameters.
+
+Training: ``forward`` (fp32 logits, aux loss), ``backbone`` (optionally
+with the router health of every MoSA layer) and ``loss`` (masked next-token
+cross-entropy; packed rows through ``segments``/``positions``).  Remat
+``none`` and ``full`` (``torch.utils.checkpoint`` per block, non-reentrant:
+the block's forward runs again in the backward); ``mosa`` and
+``dots_saveable`` are not ported yet.
 
 Ported mixers: ``mosa`` (the hybrid) and ``attn``; FFN: ``dense``.
 """
@@ -13,6 +20,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.attention import MultiHeadAttention
@@ -103,6 +111,18 @@ class Block(nn.Module):
     def _ffn(self, x):
         return x + self.ffn(self.norm2(x))
 
+    def forward(self, x, positions=None, segments=None):
+        """Training forward: (x, aux) with aux a 0-d fp32 zero (the dense
+        FFN has no auxiliary loss).  ``segments``: optional (B, T)
+        document ids of packed rows."""
+        xin = self.norm1(x)
+        if segments is None:
+            h = self.mixer(xin, positions)
+        else:
+            h = self.mixer(xin, positions, segments=segments)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._ffn(x + h), aux
+
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch, max_len, dtype, paged=None, device=None):
         c = self.cfg
@@ -159,6 +179,84 @@ class TransformerLM(nn.Module):
         if c.tie_embeddings:
             return self.embed.attend(x)
         return (x.to(c.cdtype) @ self.unembed.w.to(c.cdtype)).float()
+
+    # -------------------------------------------------------------- training
+    HEALTH_KEYS = ("sel_entropy", "drop_rate", "head_util")
+
+    def _maybe_remat(self, block):
+        policy = self.cfg.remat
+        if policy == "none":
+            return block
+        if policy == "full":
+            return lambda *a: checkpoint(block, *a, use_reentrant=False)
+        raise NotImplementedError(
+            f"remat {policy!r} is not ported yet (ROADMAP A: remat "
+            "mosa/dots_saveable); use 'none' or 'full'")
+
+    def backbone(self, x, positions=None, segments=None,
+                 collect_health: bool = False):
+        """(B, T, h) -> (hidden states, aux loss).  With
+        ``collect_health=True`` also the router health averaged over every
+        MoSA layer, each from that layer's real input, without gradient:
+        (x, aux, health) ({} for a model without MoSA layers)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        totals, n_routed = {}, 0
+        for layer in self.layers:
+            if collect_health and layer.spec.mixer == "mosa":
+                with torch.no_grad():
+                    s = layer.mixer.router_health(layer.norm1(x))
+                totals = {k: totals.get(k, 0.0) + s[k]
+                          for k in self.HEALTH_KEYS}
+                n_routed += 1
+            x, a = self._maybe_remat(layer)(x, positions, segments)
+            aux = aux + a
+        if not collect_health:
+            return x, aux
+        return x, aux, {k: v / n_routed for k, v in totals.items()}
+
+    def _forward(self, tokens, positions=None, segments=None,
+                 collect_health: bool = False):
+        x = self.embed(tokens)
+        health = {}
+        if collect_health:
+            x, aux, health = self.backbone(x, positions, segments, True)
+        else:
+            x, aux = self.backbone(x, positions, segments)
+        return self._logits(self.final_norm(x)), aux, health
+
+    def forward(self, tokens, positions=None, segments=None):
+        """tokens (B, T) -> (logits fp32 (B, T, vocab), aux loss)."""
+        logits, aux, _ = self._forward(tokens, positions, segments)
+        return logits, aux
+
+    def loss(self, batch, with_health: bool = False):
+        """batch: {"tokens" (B, T), "labels" (B, T)}, labels < 0 masked;
+        packed rows add "segments" (B, T) document ids and per-document
+        "positions".  Returns (loss, metrics) with metrics ``ce``, ``aux``,
+        ``ppl`` and ``tokens`` (0-d tensors), plus the router health keys
+        when ``with_health``."""
+        labels = batch["labels"]
+        logits, aux, health = self._forward(
+            batch["tokens"], batch.get("positions"), batch.get("segments"),
+            collect_health=with_health)
+        logits = logits.float()
+        mask = (labels >= 0).float()
+        gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
+        nll = (torch.logsumexp(logits, -1) - gold[..., 0]) * mask
+        denom = mask.sum().clamp_min(1.0)
+        ce = nll.sum() / denom
+        metrics = {"ce": ce, "aux": aux, "ppl": torch.exp(ce),
+                   "tokens": denom, **health}
+        return ce + aux, metrics
+
+    def router_health(self, tokens, positions=None):
+        """Router health averaged over every MoSA layer for ``tokens`` ({}
+        without MoSA layers): the standalone face of
+        ``backbone(collect_health=True)``."""
+        with torch.no_grad():
+            _, _, health = self.backbone(self.embed(tokens), positions,
+                                         collect_health=True)
+        return health
 
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch, max_len, dtype=None, paged=None, device=None):

@@ -36,11 +36,12 @@ def test_port_sources_import_no_jax_and_no_reference_package():
 
 def test_port_imports_with_jax_and_reference_blocked():
     """A fresh interpreter where ``import jax`` / ``import repro`` fail still
-    imports the whole serving path."""
+    imports the whole serving and training paths."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None;"
             "sys.modules['triton'] = None;"
             "import repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.kernels.build; print('ok')")
+            "repro_torch.kernels.build, repro_torch.kernels.mosa_vjp, "
+            "repro_torch.launch.train; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -9,6 +9,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 # fp32 on the CPU in both frameworks: matmuls sum in different orders, so
@@ -40,6 +41,18 @@ def numpy_params(shape_tree, seed: int):
         return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shape_tree)
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """One intra-op thread for the test.  The test workers share the CPU:
+    with several threads per process, oversubscription slows a torch test
+    up to ~20x, and the BLAS picks its thread count by load, which changes
+    the order of float sums between two runs in one process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_jax(tree):
