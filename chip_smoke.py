@@ -13,14 +13,15 @@ Phases (any failure raises, so the script exits nonzero):
      switched off for the plain versions' matmuls): MoSA attention, its
      training forward (o_pre, lse), the dq and dk/dv backward kernels, the
      autograd Function that joins them (grads of q, k, v and r against
-     autograd of the plain version) and paged decode;
+     autograd of the plain version), paged decode and packed paged
+     prefill (padding tokens and inactive segments exact zeros);
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
      in prefill) and 6 * 127 (paged decode) over that one ``generate``,
-     and by 0 for the training kernels;
+     and by 0 for the training kernels and packed prefill;
   6. the card against the CPU at the same width and weights: batch 1,
      prompt 256, 8 greedy tokens;
   7. one decode step of phase 5's shapes under ``torch.profiler``: wall
@@ -37,11 +38,27 @@ Phases (any failure raises, so the script exits nonzero):
      grad within 1e-4 of its tensor's max |grad| on the CPU;
  10. one training microbatch of phase 8's shapes under ``torch.profiler``:
      wall time, device time, idle share, launches and the top device items
-     with the operator that launched each.
+     with the operator that launched each;
+ 11. Scheduler serving of ``mosa-paper-tiny-mosa32`` at full width: batch
+     8, max_len 1152, 576 blocks of 16, 8-token decode chunks, 256-token
+     packed prefill chunks of up to 4 segments, prefix cache on; 32 seeded
+     requests (20 of 128-1024 tokens, 12 behind one shared 512-token
+     prefix), after an untimed warm pass on a Scheduler of its own (one
+     prefill chunk and one decode chunk of it replayed under
+     ``torch.profiler``).  Exact checks: every request gets its max_new,
+     every block returns but the trie's, launches of packed prefill = 6 x
+     prefill chunks, of paged decode = 6 x decode steps, of #1-#4 = 0;
+ 12. preemption at full width: 6 prompts of 1008 tokens with max_new 64
+     on 127 blocks (two prompts and one block): at least one preemption,
+     every request complete, every block back;
+ 13. the Scheduler on the card against the CPU at full width and the same
+     weights: batch 2, 128-token chunks, 4 requests of 96-320 tokens (two
+     behind a shared 160-token prefix), 8 greedy tokens each — identical
+     tokens and identical stats.
 
-The last five lines are the ``serve`` JSON, the ``train`` JSON, the
-``kernels`` JSON, the ``nvidia-smi`` name and power limit, and the result
-JSON.
+The last six lines are the ``serve`` JSON, the ``train`` JSON, the
+``sched`` JSON, the ``kernels`` JSON, the ``nvidia-smi`` name and power
+limit, and the result JSON.
 """
 
 from __future__ import annotations
@@ -235,6 +252,87 @@ def check_train_kernels(torch, dev, gen, errs):
                                          errs["mosa_attention_bwd.dv"])
 
 
+# Packed prefill (#12): segments (row, past, len), row -1 inactive; the
+# total past the last segment is a padding tail; ``share`` blocks at the
+# head of rows 0 and 1 are the same physical blocks (a prefix hit).
+PREFILL_SLICE_SEGS = [(0, 0, 64), (1, 256, 64), (2, 512, 64), (3, 960, 64)]
+PREFILL_EDGE_SEGS = [(0, 0, 5), (1, 13, 3), (2, 7, 1), (-1, 0, 4),
+                     (3, 9, 6)]
+PREFILL_CASES = {
+    "slice 256 tok/4 segs, pasts 0-960 d=64": dict(
+        Hq=4, Hkv=4, d=64, bs=16, nb=72, segs=PREFILL_SLICE_SEGS, total=256),
+    "d=32 4/4: past 0, off-grid past ending on a block, 1 token, row -1, "
+    "pad tail": dict(Hq=4, Hkv=4, d=32, bs=4, nb=6, segs=PREFILL_EDGE_SEGS,
+                     total=24),
+    "d=64 GQA 8/2, same edges": dict(Hq=8, Hkv=2, d=64, bs=4, nb=6,
+                                     segs=PREFILL_EDGE_SEGS, total=24),
+    "d=128 GQA 8/2 bs=8, shared prefix block": dict(
+        Hq=8, Hkv=2, d=128, bs=8, nb=5, segs=[(0, 0, 33), (1, 8, 7)],
+        total=48, share=1),
+    "d=64 4/4, rows sharing 2 prefix blocks": dict(
+        Hq=4, Hkv=4, d=64, bs=4, nb=6, segs=[(0, 4, 6), (1, 8, 5),
+                                             (2, 0, 3)], total=16, share=2),
+}
+
+
+def prefill_inputs(torch, dev, gen, Hq, Hkv, d, bs, nb, segs, total,
+                   share=0):
+    """A packed chunk over pools of B * nb blocks under a random
+    permutation; each row's table is -1 past the blocks its tokens fill."""
+    B = max(r for r, _, _ in segs) + 1
+    P = B * nb
+    kp = torch.randn(P, bs, Hkv, d, device=dev, generator=gen)
+    vp = torch.randn(P, bs, Hkv, d, device=dev, generator=gen)
+    table = torch.randperm(P, device=dev, generator=gen).view(B, nb).clone()
+    if share:
+        table[1, :share] = table[0, :share]
+    fill = [0] * B
+    for r, past, L in segs:
+        if r >= 0:
+            fill[r] = max(fill[r], -(-(past + L) // bs))
+    fill = torch.tensor(fill, device=dev)
+    table = torch.where(torch.arange(nb, device=dev)[None] < fill[:, None],
+                        table, -1).to(torch.int32).contiguous()
+    lens = [L for _, _, L in segs]
+    cu = torch.tensor([0] + [sum(lens[:i + 1]) for i in range(len(lens))],
+                      dtype=torch.int32, device=dev)
+    rows = torch.tensor([r for r, _, _ in segs], dtype=torch.int32,
+                        device=dev)
+    past = torch.tensor([p for _, p, _ in segs], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(total, Hq, d, device=dev, generator=gen)
+    return q, kp, vp, table, cu, rows, past
+
+
+def check_prefill_kernel(torch, dev, gen, errs):
+    from repro_torch.serve.paged_attention import (
+        packed_token_layout, paged_prefill_attention_cuda,
+        paged_prefill_attention_ref)
+    for case, kw in PREFILL_CASES.items():
+        q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen,
+                                                          **kw)
+        _, _, row_of_tok, pos = packed_token_layout(cu, rows, past,
+                                                    q.shape[0])
+        scale = kw["d"] ** -0.5
+
+        def kernel(dt):
+            out = paged_prefill_attention_cuda(q.to(dt), kp.to(dt),
+                                               vp.to(dt), table, cu, rows,
+                                               past, scale)
+            dead = row_of_tok < 0
+            if dead.any() and (out[dead] != 0).any():
+                raise AssertionError(f"paged_prefill_attention ({case}): "
+                                     "padding/inactive tokens not zero")
+            return out
+
+        check_case(
+            torch, kernel,
+            lambda dt: paged_prefill_attention_ref(
+                *(t.to(dt).float() for t in (q, kp, vp)), table, row_of_tok,
+                pos, scale),
+            "paged_prefill_attention", case, errs)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.mosa_attention import (mosa_attention_cuda,
                                                     mosa_attention_ref)
@@ -276,6 +374,7 @@ def check_kernels(torch, dev):
                 *(t.to(dt).float() for t in (q, kp, vp)), table, lengths,
                 scale),
             "paged_attention_decode", case, errs)
+    check_prefill_kernel(torch, dev, gen, errs)
     return errs
 
 
@@ -333,6 +432,9 @@ def time_kernels(torch, dev):
             flush=flush),
         bytes=nbytes, flops=flops)
 
+    out["paged_prefill_attention"] = time_prefill_kernel(torch, dev, gen,
+                                                         flush)
+
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = t["flops"] / FP32_FLOP_PER_S * 1e3
@@ -343,6 +445,58 @@ def time_kernels(torch, dev):
             f" ms ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB, "
             f"{t['flops'] / 1e9:.3f} GFLOP)")
     return out
+
+
+def time_prefill_kernel(torch, dev, gen, flush):
+    """#12 at the slice's chunk (fp32): 256 packed tokens in 4 segments of
+    64 with pasts 0, 256, 512, 960, bs 16.  Bytes: q and the output, and
+    each active segment's visible K/V read once; operations: 4*d per valid
+    (query, key) pair and query head, counted from this run's segments.
+    The yardstick is one SDPA call over the per-segment KV gathered (outside
+    the timing) into a padded batch, with a boolean causal mask."""
+    import torch.nn.functional as F
+    from repro_torch.serve.paged_attention import (
+        packed_token_layout, paged_prefill_attention_cuda,
+        paged_prefill_attention_ref)
+    kw = PREFILL_CASES["slice 256 tok/4 segs, pasts 0-960 d=64"]
+    q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen, **kw)
+    Hq, Hkv, d, bs = kw["Hq"], kw["Hkv"], kw["d"], kw["bs"]
+    scale = d ** -0.5
+    _, _, row_of_tok, pos = packed_token_layout(cu, rows, past, q.shape[0])
+    segs = [(r, p, L) for r, p, L in kw["segs"] if r >= 0]
+    visible = sum(p + L for _, p, L in segs)
+    pairs = sum(L * p + L * (L + 1) // 2 for _, p, L in segs)
+    n_tok = sum(L for _, _, L in segs)
+    nbytes = (2 * n_tok * Hq * d * 4 + visible * Hkv * d * 2 * 4
+              + table.numel() * 4 + 3 * len(segs) * 4 + 4)
+    # SDPA yardstick: (N, Hq, Lmax, d) queries, (N, Hkv->Hq, Smax, d) keys
+    N, Lmax = len(segs), max(L for _, _, L in segs)
+    Smax = max(p + L for _, p, L in segs)
+    qs = torch.zeros(N, Hq, Lmax, d, device=dev)
+    ks = torch.zeros(N, Hq, Smax, d, device=dev)
+    vs = torch.zeros(N, Hq, Smax, d, device=dev)
+    mask = torch.zeros(N, 1, Lmax, Smax, dtype=torch.bool, device=dev)
+    off = 0
+    for i, (r, p, L) in enumerate(segs):
+        qs[i, :, :L] = q[off:off + L].transpose(0, 1)
+        bt = table[r].long().clamp(min=0)
+        kk = kp[bt].reshape(-1, Hkv, d)[:p + L].transpose(0, 1)
+        vv = vp[bt].reshape(-1, Hkv, d)[:p + L].transpose(0, 1)
+        ks[i, :, :p + L] = kk.repeat_interleave(Hq // Hkv, 0)
+        vs[i, :, :p + L] = vv.repeat_interleave(Hq // Hkv, 0)
+        qpos = p + torch.arange(L, device=dev)
+        mask[i, 0, :L, :p + L] = (torch.arange(p + L, device=dev)[None]
+                                  <= qpos[:, None])
+        off += L
+    mask[:, :, :, 0] |= True          # padded query rows: keep one key
+    return dict(
+        ms=time_ms(torch, lambda: paged_prefill_attention_cuda(
+            q, kp, vp, table, cu, rows, past, scale), flush=flush),
+        plain_ms=time_ms(torch, lambda: paged_prefill_attention_ref(
+            q, kp, vp, table, row_of_tok, pos, scale), flush=flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale), flush=flush),
+        bytes=nbytes, flops=4 * pairs * Hq * d)
 
 
 def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
@@ -402,7 +556,7 @@ def kernel_counters():
     from repro_torch.serve import paged_attention as kpaged
     return {c.name: c for c in (kmosa.LAUNCHES, kmosa.LAUNCHES_FWD_RES,
                                 kbwd.LAUNCHES_DQ, kbwd.LAUNCHES_DKV,
-                                kpaged.LAUNCHES)}
+                                kpaged.LAUNCHES, kpaged.LAUNCHES_PREFILL)}
 
 
 # -------------------------------------------------------------- main path
@@ -459,7 +613,8 @@ def serve_slice(torch):
 
     want = {"mosa_attention": cfg.n_layers, "mosa_attention_fwd_res": 0,
             "mosa_attention_bwd_dq": 0, "mosa_attention_bwd_dkv": 0,
-            "paged_attention_decode": cfg.n_layers * (G - 1)}
+            "paged_attention_decode": cfg.n_layers * (G - 1),
+            "paged_prefill_attention": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if toks.shape != (B, G) or not ((toks >= 0) & (toks < cfg.vocab)).all():
@@ -604,7 +759,8 @@ def train_slice(torch):
     per_layer = mc.n_layers * cfg.microbatch * timed
     want = {"mosa_attention": 0, "mosa_attention_fwd_res": per_layer,
             "mosa_attention_bwd_dq": per_layer,
-            "mosa_attention_bwd_dkv": per_layer, "paged_attention_decode": 0}
+            "mosa_attention_bwd_dkv": per_layer, "paged_attention_decode": 0,
+            "paged_prefill_attention": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     losses = [h["loss"] for h in history]
@@ -740,6 +896,303 @@ def profile_train(torch, trainer, steps=2):
     return res
 
 
+# ------------------------------------------------------ Scheduler serving
+SCHED_MAX_LEN, SCHED_BS, SCHED_BLOCKS = 1152, 16, 576
+
+
+def sched_config():
+    from repro_torch.configs.base import get_config
+    cfg = get_config("mosa-paper", preset="full", size="tiny", variant="mosa")
+    return dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
+                                                             impl="kernel"))
+
+
+def sched_requests(vocab, seed=2):
+    """32 requests from a seeded numpy generator: 20 prompts of 128-1024
+    tokens, and 12 behind one shared 512-token prefix with 64-512 tokens of
+    their own — except the first of those 12, whose own part is 1-15
+    tokens.  A MoSA model can only hit the trie on a node with a snapshot,
+    which a request inserts at its own last full block: that first request
+    inserts exactly the shared prefix, and the other 11 can hit it.  Each
+    ``max_new`` in 16-128 fits ``max_len``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(2, vocab, int(rng.integers(128, 1025)))
+               for _ in range(20)]
+    shared = rng.integers(2, vocab, 512)
+    tails = [int(rng.integers(1, 16))] + [int(rng.integers(64, 513))
+                                          for _ in range(11)]
+    shared_prompts = [np.concatenate([shared, rng.integers(2, vocab, L)])
+                      for L in tails]
+    order = list(rng.permutation(32))
+    # the bare-prefix request goes first among the shared ones
+    first_shared = min(i for i, j in enumerate(order) if j >= 20)
+    k = order.index(20)
+    order[first_shared], order[k] = order[k], order[first_shared]
+    allp = prompts + shared_prompts
+    reqs = [(allp[j].astype(np.int32), int(rng.integers(16, 129)))
+            for j in order]
+    assert all(len(p) + m - 1 <= SCHED_MAX_LEN for p, m in reqs)
+    return reqs
+
+
+class SyncedServerCalls:
+    """Wraps a Server's ``prefill_packed`` and ``decode_many`` so that each
+    returns only when the card has finished (the Scheduler's spans around
+    them then time device work, not the enqueue), and optionally replays
+    the ``profile_at``-th call of each under ``torch.profiler``: the rows it
+    touches are snapshot first and restored before the replay, so the
+    replay computes the same chunk.  ``uninstall`` restores the methods."""
+
+    def __init__(self, torch, server, profile_at=None):
+        self.torch, self.server = torch, server
+        self.calls = {"prefill_packed": 0, "decode_many": 0}
+        self.profile_at = profile_at
+        self.profiles = {}
+        for name in self.calls:
+            setattr(server, name, self._wrap(name, getattr(server, name)))
+
+    def uninstall(self):
+        for name in self.calls:
+            delattr(self.server, name)
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+        from repro_torch.launch.serve import row_restore, row_snapshot
+
+        def call(*args):
+            self.calls[name] += 1
+            caches = args[1]
+            profile = self.calls[name] == self.profile_at
+            if profile:
+                snaps = [row_snapshot(caches, b)
+                         for b in range(self.server.batch)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if profile:
+                from torch.profiler import ProfilerActivity, profile as prof
+                with torch.inference_mode():
+                    for b, sn in enumerate(snaps):
+                        row_restore(caches, sn, b)
+                with prof(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as pr:
+                    out = fn(*args)
+                    torch.cuda.synchronize()
+                self.profiles[name] = (pr, wall_ms)
+            return out
+        return call
+
+
+def report_chunk_profile(torch, name, prof, wall_ms):
+    res = profile_summary(torch, prof, wall_ms, 1)
+    top = res.pop("top")
+    by_op = {}
+    for e in prof.events():
+        for kern in getattr(e, "kernels", ()):
+            key = e.name
+            ms, n = by_op.get(key, (0.0, 0))
+            by_op[key] = (ms + kern.duration / 1e3, n + 1)
+    res["top_ops"] = [dict(op=op, ms=ms, count=n) for op, (ms, n) in sorted(
+        by_op.items(), key=lambda kv: -kv[1][0])[:8]]
+    log(f"  {name}: {wall_ms:.2f} ms wall, {res['device_ms']:.2f} ms on the "
+        f"device (idle share {res['idle_share']:.2f}), "
+        f"{res['launches']:.0f} kernel launches")
+    log("    top kernels:")
+    for ms, count, kname in top[:6]:
+        log(f"      {ms:7.3f} ms {count:5.0f}x  {kname[:80]}")
+    log("    top launching operators:")
+    for t in res["top_ops"]:
+        log(f"      {t['ms']:7.3f} ms {t['count']:5.0f}x  {t['op'][:80]}")
+    return res
+
+
+def sched_slice(torch):
+    """[11]: the timed full-width Scheduler run, after a warm pass."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = sched_config()
+    server = Server(cfg, batch=8, max_len=SCHED_MAX_LEN,
+                    paged=PagedConfig(block_size=SCHED_BS,
+                                      num_blocks=SCHED_BLOCKS), seed=0)
+    kw = dict(chunk=8, chunk_tokens=256, max_prefill_segs=4)
+    log(f"  Server(batch 8, max_len {SCHED_MAX_LEN}, {SCHED_BLOCKS} blocks "
+        f"of {SCHED_BS}); Scheduler({kw}, prefix_cache=True)")
+
+    # warm pass on a Scheduler of its own; its 2nd prefill chunk and 2nd
+    # decode chunk are replayed under the profiler
+    rng = np.random.default_rng(7)
+    synced = SyncedServerCalls(torch, server, profile_at=2)
+    warm = Scheduler(server, prefix_cache=True, **kw)
+    for L in (700, 600, 500, 400, 300):
+        warm.submit(rng.integers(2, cfg.vocab, L), max_new=24)
+    warm.run()
+    synced.uninstall()
+    profiles = {name: report_chunk_profile(torch, name, *synced.profiles[name])
+                for name in ("prefill_packed", "decode_many")}
+    del warm
+
+    reqs = sched_requests(cfg.vocab)
+    obs.set_enabled(True)
+    obs.registry().reset()
+    obs.tracer().reset()
+    sched = Scheduler(server, prefix_cache=True, **kw)
+    rids = [sched.submit(p, m) for p, m in reqs]
+    synced = SyncedServerCalls(torch, server)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = sched.run(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    synced.uninstall()
+
+    st = dict(sched.stats)
+    snap = obs.registry().snapshot()
+    decode_steps = int(snap["counters"]["server.decode_steps"])
+    for rid, (p, m) in zip(rids, reqs):
+        toks = out[rid]
+        if len(toks) != m or not ((toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"request {rid}: {len(toks)} tokens, want "
+                                 f"{m}")
+    pool = sched.dense_pool
+    if pool.free_blocks + sched.prefix.n_nodes != pool.num_blocks:
+        raise AssertionError(f"blocks leaked: {pool.free_blocks} free + "
+                             f"{sched.prefix.n_nodes} trie nodes != "
+                             f"{pool.num_blocks}")
+    want = {"mosa_attention": 0, "mosa_attention_fwd_res": 0,
+            "mosa_attention_bwd_dq": 0, "mosa_attention_bwd_dkv": 0,
+            "paged_attention_decode": cfg.n_layers * decode_steps,
+            "paged_prefill_attention": cfg.n_layers * st["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if st["prefix_hits"] < 1:
+        raise AssertionError(f"no prefix hit: {st}")
+    spans = obs.tracer().spans()
+
+    def span_s(name):
+        d = [s.dur for s in spans if s.name == name]
+        return sum(d), len(d)
+
+    pre_s, n_pre = span_s("prefill_chunk")
+    dec_s, n_dec = span_s("decode_chunk")
+    counts = snap["counters"]
+
+    ttft = obs.registry().histogram("serve.ttft_s").percentiles()
+    gen_tokens = sum(m for _, m in reqs)
+    res = dict(wall_s=wall, requests=len(reqs), req_s=len(reqs) / wall,
+               generated_tokens=gen_tokens, gen_tok_s=gen_tokens / wall,
+               prompt_tokens=int(sum(len(p) for p, _ in reqs)),
+               ttft_p50_s=ttft["p50"], ttft_p90_s=ttft["p90"],
+               prefill_chunk_ms=1e3 * pre_s / n_pre,
+               decode_chunk_ms=1e3 * dec_s / n_dec,
+               prefill_chunks_s=pre_s, decode_chunks_s=dec_s,
+               other_s=wall - pre_s - dec_s, decode_chunks=n_dec,
+               pauses=int(counts.get("serve.pauses", 0)),
+               resumes=int(counts.get("serve.resumes", 0)),
+               decode_steps=decode_steps, stats=st,
+               packed_efficiency=st["prefilled_tokens"]
+               / st["prefill_chunk_slots"],
+               peak_gib=peak / 2 ** 30, launches=launches,
+               profile=profiles)
+    log(f"  {len(reqs)} requests ({res['prompt_tokens']} prompt tokens, "
+        f"{gen_tokens} generated) in {wall:.2f} s: {res['req_s']:.2f} req/s, "
+        f"{res['gen_tok_s']:.1f} generated tok/s")
+    log(f"  TTFT p50 {ttft['p50']:.3f} s, p90 {ttft['p90']:.3f} s; mean "
+        f"prefill chunk {res['prefill_chunk_ms']:.2f} ms, mean decode chunk "
+        f"{res['decode_chunk_ms']:.2f} ms ({n_dec} chunks, {decode_steps} "
+        f"decode steps)")
+    log(f"  wall: prefill chunks {pre_s:.2f} s, decode chunks {dec_s:.2f} s, "
+        f"the rest (admission, pauses/resumes, prefix inserts, sampling) "
+        f"{res['other_s']:.2f} s; {res['pauses']} pauses, {res['resumes']} "
+        f"resumes")
+    log(f"  stats {st}; packed efficiency {res['packed_efficiency']:.3f}; "
+        f"peak device memory {res['peak_gib']:.3f} GiB")
+    log(f"  launches over the run: {launches}")
+    return server, res
+
+
+def preempt_slice(torch, server):
+    """[12]: 6 prompts of 1008 tokens (63 blocks), max_new 64, on 127
+    blocks: two rows fit, and the first decode growth past a block
+    boundary runs the pool dry."""
+    import numpy as np
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    tight = Server(server.model_cfg, batch=8, max_len=SCHED_MAX_LEN,
+                   paged=PagedConfig(block_size=SCHED_BS, num_blocks=127),
+                   params=server.model.state_dict())
+    sched = Scheduler(tight, chunk=8, chunk_tokens=256, max_prefill_segs=4,
+                      prefix_cache=False)
+    rng = np.random.default_rng(3)
+    rids = [sched.submit(rng.integers(2, tight.model_cfg.vocab, 1008), 64)
+            for _ in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(sched.stats)
+    if st["preemptions"] < 1:
+        raise AssertionError(f"no preemption: {st}")
+    if [len(out[r]) for r in rids] != [64] * 6:
+        raise AssertionError(f"lengths {[len(out[r]) for r in rids]}")
+    if sched.dense_pool.free_blocks != sched.dense_pool.num_blocks:
+        raise AssertionError("blocks leaked after preemption")
+    log(f"  6 x 1008-token prompts, 64 tokens each, on 127 blocks: "
+        f"{wall:.2f} s, stats {st}; every block back")
+    return dict(wall_s=wall, stats=st)
+
+
+def sched_cross_check(torch, server):
+    """[13]: the Scheduler on the card and on the CPU, same weights."""
+    import numpy as np
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = server.model_cfg
+    rng = np.random.default_rng(4)
+    shared = rng.integers(2, cfg.vocab, 160)
+    prompts = [np.concatenate([shared, rng.integers(2, cfg.vocab, 8)]),
+               rng.integers(2, cfg.vocab, 96),
+               np.concatenate([shared, rng.integers(2, cfg.vocab, 150)]),
+               rng.integers(2, cfg.vocab, 320)]
+    max_len = 336
+    paged = PagedConfig(block_size=SCHED_BS, num_blocks=2 * max_len // 16)
+    state = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
+    out = {}
+    for name, dev in (("gpu", None), ("cpu", "cpu")):
+        srv = Server(cfg, batch=2, max_len=max_len, paged=paged,
+                     params=state, device=dev)
+        sched = Scheduler(srv, chunk=8, chunk_tokens=128, max_prefill_segs=2)
+        for p in prompts:
+            sched.submit(p, 8)
+        out[name] = (sched.run(), dict(sched.stats))
+    (rg, sg), (rc, sc) = out["gpu"], out["cpu"]
+    log(f"  stats gpu {sg}")
+    log(f"  stats cpu {sc}")
+    for rid in sorted(rc):
+        log(f"  request {rid}: gpu {rg[rid].tolist()} cpu {rc[rid].tolist()}")
+    if sg != sc:
+        raise AssertionError("Scheduler stats differ between card and CPU")
+    if sg["prefix_hits"] < 1:
+        raise AssertionError("no prefix hit in the cross-check")
+    if any(not torch.equal(rg[r], rc[r]) for r in rc):
+        raise AssertionError("Scheduler tokens differ between card and CPU")
+    return dict(stats=sg)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -795,6 +1248,17 @@ def main():
 
     log("[10] one training microbatch at the slice's shapes, profiled")
     train["microbatch"] = profile_train(torch, trainer)
+    del trainer
+
+    log("[11] main path: Scheduler serving at full width")
+    sched_server, sched = sched_slice(torch)
+
+    log("[12] preemption at full width")
+    sched["preempt"] = preempt_slice(torch, sched_server)
+
+    log("[13] card vs CPU for the Scheduler at full width")
+    sched["cross_check"] = sched_cross_check(torch, sched_server)
+    del sched_server
 
     sources = {
         "mosa_attention": ("src/repro_torch/csrc/mosa_attention.cu",
@@ -807,10 +1271,14 @@ def main():
                                    "src/repro/kernels/mosa_backward.py:100"),
         "paged_attention_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/serve/paged_attention.py:87"),
+        "paged_prefill_attention": ("src/repro_torch/csrc/paged_prefill.cu",
+                                    "src/repro/serve/paged_attention.py:260"),
     }
-    # launches: serving's kernels from [5], training's from [8]
-    launches = {name: res["launches"][name] or train["launches_total"][name]
-                for name in sources}
+    # launches: serving's kernels from [5], training's from [8], packed
+    # prefill's from [11]
+    launches = {name: (res["launches"][name]
+                       or train["launches_total"][name]
+                       or sched["launches"][name]) for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],
@@ -824,6 +1292,7 @@ def main():
                             "generate_s", "peak_gib", "params",
                             "decode_step")}}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"sched": sched}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

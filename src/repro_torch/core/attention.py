@@ -8,8 +8,10 @@
   * ``gqa_attention``     — direct (unchunked) GQA attention.
   * ``MultiHeadAttention`` — projections, RoPE, the forward pass, and the
     serving ``prefill`` / ``decode_step`` on contiguous and paged dense
-    caches.  Paged decode goes through ``paged_attention_decode`` (the
-    CUDA kernel on the card).  Window caches, MLA and the flash kernels are
+    caches, and the Scheduler's packed chunked ``prefill_packed`` on a
+    paged dense cache.  Paged decode goes through ``paged_attention_decode``
+    and packed prefill through ``paged_prefill_attention`` (the CUDA
+    kernels on the card).  Window caches, MLA and the flash kernels are
     not ported yet.
 """
 
@@ -22,7 +24,8 @@ from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.kv_cache import DenseKVCache
 from repro_torch.nn.layers import param, trunc_normal_
-from repro_torch.serve.paged_attention import paged_attention_decode
+from repro_torch.serve.paged_attention import (paged_attention_decode,
+                                               paged_prefill_attention)
 from repro_torch.serve.paged_kv import PagedDenseKVCache
 
 NEG_INF = -1e30
@@ -263,6 +266,33 @@ class MultiHeadAttention(nn.Module):
                                 window=c.window, k_valid=k_valid,
                                 chunk=CHUNK)
         return self._out(out), cache
+
+    def prefill_packed(self, x, cache, meta):
+        """Packed multi-segment chunked prefill: ONE pass over the packed
+        stream.  x: (1, C, h), N prompt segments back to back, each
+        continuing a different batch row of the paged cache; ``meta`` is
+        the layout ``TransformerLM.prefill_packed`` builds.  K/V scatter
+        straight into each token's row blocks (``append_packed``), then
+        every token attends its row's keys up to its own position through
+        ``paged_prefill_attention`` (the CUDA kernel on the card)."""
+        if not isinstance(cache, PagedDenseKVCache):
+            raise ValueError(f"packed prefill requires a paged dense cache, "
+                             f"got {type(cache).__name__}")
+        if self.cfg.window:
+            raise NotImplementedError("packed prefill of window attention "
+                                      "is not ported yet")
+        _, C, _ = x.shape
+        pos = meta["pos_of_tok"][None]                     # (1, C)
+        q, k, v = self._qkv(x)                             # (1, H, C, d)
+        q = self._rope(q, pos)
+        k = self._rope(k, pos)
+        cache = cache.append_packed(k[0].transpose(0, 1), v[0].transpose(0, 1),
+                                    meta["row_of_tok"], meta["pos_of_tok"])
+        out = paged_prefill_attention(
+            q[0].transpose(0, 1).contiguous(), cache, meta["cu"],
+            meta["rows"], meta["past_lens"], scale=self._scale)
+        cd = self.compute_dtype
+        return out.reshape(1, C, -1).to(cd) @ self.wo.to(cd), cache
 
     def _decode_dense_paged(self, x, cache: PagedDenseKVCache, positions=None):
         """Append into the row's pool blocks, then paged-attention decode

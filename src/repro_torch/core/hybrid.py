@@ -91,6 +91,18 @@ class HybridAttention(nn.Module):
             y = y + yd
         return y, out
 
+    def prefill_packed(self, x, caches, meta):
+        """Packed chunked prefill: the sparse side runs per-segment union
+        selection (``MoSAAttention.prefill_packed``), the dense side its
+        paged packed path."""
+        y, sc = self.sparse.prefill_packed(x, caches["sparse"], meta)
+        out = dict(caches, sparse=sc)
+        if self.dense is not None:
+            yd, dc = self.dense.prefill_packed(x, caches["dense"], meta)
+            out["dense"] = dc
+            y = y + yd
+        return y, out
+
     def decode_step(self, x, caches, positions=None):
         y, sc = self.sparse.decode_step(x, caches["sparse"], positions)
         out = dict(caches, sparse=sc)

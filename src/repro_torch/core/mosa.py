@@ -15,6 +15,13 @@ returns dq, dk, dv and the router-score gradient dr (through it, and the
 gather of the selected scores, the router weights learn).  ``impl="einsum"``
 is the port of the JAX package's XLA path in plain PyTorch.  Block-choice
 selection is not ported yet.
+
+Serving: ``prefill`` (one-shot, training-style selection), ``prefill_past``
+(continue a cached prefix with a prompt suffix through the exact
+capacity-wide union selection), ``prefill_packed`` (the Scheduler's packed
+chunk, unpacked per segment into ``prefill_past``) and the streaming
+``decode_step``.  The suffix attention of ``prefill_past`` is einsums, as
+in the JAX package (no Pallas kernel there).
 """
 
 from __future__ import annotations
@@ -24,10 +31,10 @@ from torch import nn
 
 from repro_torch.configs.base import MoSAConfig
 from repro_torch.core import rope as rope_lib
-from repro_torch.core.kv_cache import MoSAKVCache
+from repro_torch.core.kv_cache import MoSAKVCache, scatter_kept
 from repro_torch.core.router import (ExpertChoiceRouter, router_health_stats,
                                      select_topk, selection_mask,
-                                     streaming_topk_update)
+                                     streaming_topk_update, topk_indices)
 from repro_torch.kernels import mosa_attention as kmosa
 from repro_torch.nn.layers import param, trunc_normal_
 
@@ -193,6 +200,147 @@ class MoSAAttention(nn.Module):
         nv = (T if valid is None else valid.sum(-1).to(torch.int32))
         cache = MoSAKVCache(kk, v, r.float(), idx, cache.length + nv)
         return y, cache
+
+    def prefill_past(self, x, cache: MoSAKVCache, valid=None):
+        """Continued prefill: extend a restored prefix cache with a prompt
+        suffix, reproducing training-style selection over the whole prompt.
+
+        Exact for every chunk split: a token in the one-shot top
+        ``k_for(T_total)`` has, within any prefix, rank at most
+        ``k_for(T_total) <= capacity``; ``prefill`` and this method both
+        store the CAPACITY-wide top of their candidate union at every
+        boundary, so the union of {cached entries} and {suffix tokens}
+        always holds the true selection.  The union top-k takes equal
+        scores lower index first (``topk_indices``, the rule of
+        ``lax.top_k``); the forced first token is boosted to 2.0 for the
+        selection only.  The output uses the one-shot width
+        ``min(k_for(L0 + T_valid), capacity)`` by rank-masking the union
+        (ordered by score) in the suffix attention only; storage keeps the
+        capacity-wide union.  Suffix queries attend the final selection
+        under the index-causal mask, scaled by their router score, and the
+        heads' outputs are scatter-added to the suffix positions."""
+        c, cd = self.cfg, self.compute_dtype
+        B, T, h = x.shape
+        H, d = c.n_mosa_heads, c.d_head
+        kc = cache.k.shape[2]
+        dev = x.device
+        L0 = cache.length.long()                                 # (B,)
+        nv = (torch.full((B,), T, dtype=torch.long, device=dev)
+              if valid is None else valid.sum(-1).long())
+
+        base_pos = L0[:, None] + torch.arange(T, device=dev)[None]
+        idx_new = base_pos[:, None].expand(B, H, T)
+
+        scores_new = self.router.scores(x)                       # (B, H, T)
+        if valid is not None:
+            scores_new = torch.where(valid[:, None, :], scores_new, -1.0)
+
+        xc = x.to(cd)
+        q_all = torch.einsum("bth,nhd->bntd", xc, self.wq.to(cd))
+        k_all = torch.einsum("bth,nhd->bntd", xc, self.wk.to(cd))
+        v_all = torch.einsum("bth,nhd->bntd", xc, self.wv.to(cd))
+        q_all = self._rope(q_all, idx_new)
+        k_all = self._rope(k_all, idx_new)
+
+        # Union candidates: the cached prefix top-k (roped at their
+        # original positions) and every suffix token; disjoint by
+        # construction (cached idx < L0 <= suffix idx).
+        scores_cat = torch.cat([cache.scores, scores_new], dim=-1)
+        idx_cat = torch.cat([cache.idx.long(), idx_new], dim=-1)
+        k_cat = torch.cat([cache.k.to(cd), k_all], dim=2)
+        v_cat = torch.cat([cache.v.to(cd), v_all], dim=2)
+
+        sel_scores = scores_cat
+        if c.force_first_token:
+            sel_scores = torch.where(idx_cat == 0, 2.0, sel_scores)
+        j = topk_indices(sel_scores, kc)                         # (B, H, kc)
+        r_sel = torch.gather(scores_cat, -1, j)
+        idx_sel = torch.gather(idx_cat, -1, j)
+        jd = j[..., None].expand(-1, -1, -1, d)
+        k_sel = torch.gather(k_cat, 2, jd)
+        v_sel = torch.gather(v_cat, 2, jd)
+
+        sel_ok = r_sel > 0.0          # -inf empties / -1.0 pads drop out
+        total = L0 + nv
+        if c.k_fixed > 0:
+            k_eff = total.clamp(max=c.k_fixed)
+        else:
+            k_eff = torch.maximum(torch.minimum(total // c.sparsity, total),
+                                  total.clamp(max=c.min_k))
+        k_eff = k_eff.clamp(max=kc)
+        rank_ok = sel_ok & (torch.arange(kc, device=dev)
+                            < k_eff[:, None, None])
+        r_st = torch.where(sel_ok, r_sel, float("-inf"))
+        idx_st = torch.where(sel_ok, idx_sel, -1)
+        order = torch.argsort(torch.where(idx_st < 0, INT32_MAX, idx_st),
+                              dim=-1, stable=True)
+        idx_st = torch.gather(idx_st, -1, order)
+        r_st = torch.gather(r_st, -1, order)
+        rank_ok = torch.gather(rank_ok, -1, order)
+        od = order[..., None].expand(-1, -1, -1, d)
+        k_sel = torch.gather(k_sel, 2, od)
+        v_sel = torch.gather(v_sel, 2, od)
+
+        # Suffix-query outputs over the final selection, queries and keys
+        # rank-masked to the one-shot width.
+        L0b = L0[:, None, None]
+        is_suffix = rank_ok & (idx_st >= L0b) & (idx_st >= 0)
+        t_j = (idx_st - L0b).clamp(0, T - 1)
+        q_sel = torch.gather(q_all, 2, t_j[..., None].expand(-1, -1, -1, d))
+        s = torch.einsum("bnqd,bnkd->bnqk", q_sel.float(),
+                         k_sel.float()) * (d ** -0.5)
+        mask = (selection_mask(idx_st, idx_st)
+                & (idx_st >= 0)[:, :, None, :] & rank_ok[:, :, None, :])
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        att = torch.einsum("bnqk,bnkd->bnqd", p.to(cd).float(),
+                           v_sel.float())
+        r_q = torch.where(is_suffix, r_st.clamp(min=0.0), 0.0)
+        att = att * r_q[..., None]
+        y_heads = torch.einsum("bnkd,ndh->bnkh", att.to(cd), self.wo.to(cd))
+
+        # scatter-add the heads' suffix rows; non-suffix rows go to the
+        # extra column T, which is dropped
+        tgt = torch.where(is_suffix, t_j, T)
+        flat = tgt + (T + 1) * torch.arange(B, device=dev)[:, None, None]
+        y = torch.zeros((B * (T + 1), h), dtype=cd, device=dev)
+        y.index_add_(0, flat.reshape(-1), y_heads.reshape(-1, h))
+        y = y.reshape(B, T + 1, h)[:, :T]
+
+        cache = MoSAKVCache(k_sel.to(cache.k.dtype), v_sel.to(cache.v.dtype),
+                            r_st.float(), idx_st.to(cache.idx.dtype),
+                            total.to(cache.length.dtype))
+        return y, cache
+
+    def prefill_packed(self, x, cache: MoSAKVCache, meta):
+        """Packed multi-segment chunked prefill.  x: (1, C, h), a chunk of
+        N prompt segments, each continuing a different batch row's cache;
+        ``meta`` is the layout ``TransformerLM.prefill_packed`` builds
+        (``rows`` (N,), -1 = inactive; ``tok_idx``/``in_seg`` (N, C), the
+        unpack gather; ``seg_of_tok``/``local_of_tok``/``row_of_tok``
+        (C,), the scatter back).
+
+        Expert-choice selection is PER SEGMENT: the chunk is unpacked to an
+        (N, C) right-padded batch and run through ``prefill_past`` with
+        ``in_seg`` as ``valid``, then the touched rows are written back
+        into the B-row cache IN PLACE (inactive segments are dropped).  A
+        row appears at most once per chunk."""
+        B = cache.k.shape[0]
+        rows = meta["rows"].long()
+        rowc = rows.clamp(0, B - 1)
+        gc = MoSAKVCache(*(f[rowc] for f in cache))
+        in_seg = meta["in_seg"]
+        xs = x[0][meta["tok_idx"]] * in_seg[..., None].to(x.dtype)
+        y_seg, gc2 = self.prefill_past(xs, gc, in_seg)
+
+        keep = rows >= 0
+        col = torch.zeros_like(rowc)
+        for old, new in zip(cache, gc2):
+            scatter_kept(old.unsqueeze(1), rowc, col, new.to(old.dtype), keep)
+        segc = meta["seg_of_tok"].clamp(min=0)
+        y = y_seg[segc, meta["local_of_tok"]]                    # (C, h)
+        y = torch.where((meta["row_of_tok"] >= 0)[:, None], y, 0.0)
+        return y[None].to(y_seg.dtype), cache
 
     def decode_step(self, x, cache: MoSAKVCache, positions=None):
         """Streaming expert-choice decode.  x: (B, 1, h).  The new token

@@ -45,6 +45,7 @@ SIGNATURES = {
     "repro_mosa_attention_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dkv": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "repro_paged_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }
 
 

@@ -28,6 +28,7 @@ from repro_torch.core.hybrid import HybridAttention
 from repro_torch.core.kv_cache import DenseKVCache
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear, RMSNorm
+from repro_torch.serve.paged_attention import packed_token_layout
 from repro_torch.serve.paged_kv import PagedDenseKVCache
 
 
@@ -140,6 +141,12 @@ class Block(nn.Module):
 
     def prefill(self, x, cache, positions=None, valid=None):
         h, cache = self.mixer.prefill(self.norm1(x), cache, positions, valid)
+        return self._ffn(x + h), cache
+
+    def prefill_packed(self, x, cache, meta):
+        """Packed chunked prefill of one layer (``meta``: see
+        ``TransformerLM.prefill_packed``)."""
+        h, cache = self.mixer.prefill_packed(self.norm1(x), cache, meta)
         return self._ffn(x + h), cache
 
     def decode_step(self, x, cache, positions=None):
@@ -283,6 +290,41 @@ class TransformerLM(nn.Module):
             xl = torch.gather(x, 1, last_pos.long()[:, None, None].expand(
                 -1, 1, x.shape[-1]))
         return self._logits(xl), new
+
+    def prefill_packed(self, tokens, caches, cu_seqlens, rows, past_lens):
+        """Packed multi-segment chunked prefill over paged caches.
+
+        tokens: (1, C) — N prompt segments flattened back to back (the tail
+        past ``cu[N]`` is padding); cu_seqlens: (N + 1,) offsets; rows:
+        (N,) batch row per segment (-1 = inactive); past_lens: (N,) tokens
+        already in each row's caches.  Returns ``(logits (N, V), caches)``:
+        each segment's logits at its LAST token in this chunk (only
+        segments completing their prompt have meaningful ones)."""
+        dev = tokens.device
+        C = tokens.shape[1]
+        cu = torch.as_tensor(cu_seqlens, device=dev).to(torch.int32)
+        rows = torch.as_tensor(rows, device=dev).to(torch.int32)
+        past = torch.as_tensor(past_lens, device=dev).to(torch.int32)
+        seg, local, row_of_tok, _ = packed_token_layout(cu, rows, past, C)
+        segc = seg.clamp(min=0)
+        pos_of_tok = torch.where(row_of_tok >= 0, past.long()[segc] + local, 0)
+        t = torch.arange(C, device=dev)
+        cul = cu.long()
+        tok_idx = (cul[:-1, None] + t[None]).clamp(0, C - 1)      # (N, C)
+        seg_len = cul[1:] - cul[:-1]
+        in_seg = (t[None] < seg_len[:, None]) & (rows >= 0)[:, None]
+        meta = dict(cu=cu, rows=rows, past_lens=past, seg_of_tok=seg,
+                    local_of_tok=local, row_of_tok=row_of_tok,
+                    pos_of_tok=pos_of_tok, tok_idx=tok_idx, in_seg=in_seg)
+
+        x = self.embed(tokens)
+        new = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.prefill_packed(x, cache, meta)
+            new.append(cache)
+        x = self.final_norm(x)
+        last = (cul[1:] - 1).clamp(0, C - 1)                      # (N,)
+        return self._logits(x[0][last]), new
 
     def decode_step(self, token, caches, positions=None):
         """token: (B, 1) -> (logits (B, 1, V), caches)."""

@@ -1,7 +1,8 @@
-"""Paged-attention decode: one query token per row over a paged dense cache.
+"""Paged attention over a paged dense cache: decode (one query token per
+row) and packed chunked prefill.
 
-Replaces the TPU kernel ``_paged_kernel`` of
-``repro/serve/paged_attention.py``.
+Decode replaces the TPU kernel ``_paged_kernel`` of
+``repro/serve/paged_attention.py``:
 
   * ``paged_attention_ref``    — plain PyTorch, a port of the JAX gather
     reference: gather the row's blocks back to the contiguous layout and
@@ -11,6 +12,17 @@ Replaces the TPU kernel ``_paged_kernel`` of
     softmax, no gather buffer;
   * ``paged_attention_decode`` — the dispatcher: a CUDA tensor goes to the
     kernel, a CPU tensor to the plain version.  There is no other route.
+
+Packed prefill replaces ``_paged_prefill_kernel``: a chunk of N segments
+flattened back to back (``cu_seqlens``), segment n continuing batch row
+``rows[n]`` after ``past_lens[n]`` cached tokens.
+
+  * ``paged_prefill_attention_ref``  — plain PyTorch, the JAX reference:
+    every token attends the gathered keys of its row at positions <= its
+    own;
+  * ``paged_prefill_attention_cuda`` — the hand-written CUDA kernel
+    (``csrc/paged_prefill.cu``), reading the packed stream directly;
+  * ``paged_prefill_attention``      — the dispatcher, as for decode.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8            # query heads per KV head the kernel takes
 LAUNCHES = LaunchCounter("paged_attention_decode")
+LAUNCHES_PREFILL = LaunchCounter("paged_prefill_attention")
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale):
@@ -51,6 +64,24 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale):
     return out.reshape(B, Hq, d).to(q.dtype)
 
 
+def _check_geometry(q, k_pool):
+    """Head dim, dtype and GQA group the paged kernels take."""
+    d, Hq, Hkv = q.shape[-1], q.shape[-2], k_pool.shape[2]
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if Hkv < 1 or Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"need Hq % Hkv == 0 and Hq / Hkv <= {MAX_GROUP}, "
+                         f"got Hq={Hq}, Hkv={Hkv}")
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, scale):
     """The CUDA kernel.  q: (B, Hq, d); pools (N, bs, Hkv, d), contiguous
     fp32 or bf16 with d in (32, 64, 128) and Hq / Hkv <= 8; block_table
@@ -63,22 +94,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, scale):
     B, Hq, d = q.shape
     N, bs, Hkv = k_pool.shape[:3]
     nb = block_table.shape[-1]
-    if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if Hkv < 1 or Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"need Hq % Hkv == 0 and Hq / Hkv <= {MAX_GROUP}, "
-                         f"got Hq={Hq}, Hkv={Hkv}")
+    _check_geometry(q, k_pool)
     dev = q.device
     check_tensor("q", q, (B, Hq, d), q.dtype, dev)
     check_tensor("k_pool", k_pool, (N, bs, Hkv, d), q.dtype, dev)
     check_tensor("v_pool", v_pool, (N, bs, Hkv, d), q.dtype, dev)
     check_tensor("block_table", block_table, (B, nb), torch.int32, dev)
     check_tensor("lengths", lengths, (B,), torch.int32, dev)
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
     lib = library().lib
     with torch.cuda.device(dev):
@@ -100,3 +123,119 @@ def paged_attention_decode(q, cache: PagedDenseKVCache, *, scale: float):
     if q.is_cuda:
         return paged_attention_cuda(*args)
     return paged_attention_ref(*args)
+
+
+# ------------------------------------------------- packed varlen prefill
+def packed_token_layout(cu_seqlens, row_of_seg, past_lens, total: int):
+    """Per-token view of a packed chunk: (seg, local, row_of_tok,
+    pos_in_kv), each (total,).  ``seg`` is -1 on the padding tail
+    (t >= cu[N]); ``row_of_tok`` is -1 there and on inactive segments;
+    ``pos_in_kv`` is the token's absolute position in its row's KV space
+    (-1 where ``seg`` is -1)."""
+    cu = cu_seqlens.long()
+    t = torch.arange(total, device=cu.device)
+    seg = torch.searchsorted(cu[1:].contiguous(), t, right=True)
+    seg = torch.where(t < cu[-1], seg, -1)
+    segc = seg.clamp(min=0)
+    local = t - cu[segc]
+    row_of_tok = torch.where(seg >= 0, row_of_seg.long()[segc], -1)
+    pos_in_kv = torch.where(seg >= 0, past_lens.long()[segc] + local, -1)
+    return seg, local, row_of_tok, pos_in_kv
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, block_table, row_of_tok,
+                                pos_in_kv, scale):
+    """Packed ragged prefill attention over paged pools (the plain version).
+
+    q: (total, Hq, d); pools (P, bs, Hkv, d); block_table (B, nb);
+    row_of_tok (total,): the batch row whose KV each token reads (-1 =
+    padding -> zero output); pos_in_kv (total,): the token's own position
+    in that row's KV space; it attends every key at a position <= it.
+    Returns (total, Hq, d) in q.dtype.  The chunk's own K/V must already be
+    in the pools."""
+    total, Hq, d = q.shape
+    nb, bs = block_table.shape[1], k_pool.shape[1]
+    Hkv = k_pool.shape[2]
+    R = Hq // Hkv
+    S = nb * bs
+    B = block_table.shape[0]
+    bt = block_table.long().clamp(min=0)
+    kk = k_pool[bt].reshape(B, S, Hkv, d)
+    vv = v_pool[bt].reshape(B, S, Hkv, d)
+    row = row_of_tok.long().clamp(min=0)
+    kt, vt = kk[row], vv[row]                                # (T, S, Hkv, d)
+    qg = q.reshape(total, Hkv, R, d).float()
+    s = torch.einsum("tgrd,tsgd->tgrs", qg, kt.float()) * scale
+    k_pos = torch.arange(S, device=q.device)
+    ok = (k_pos[None, :] <= pos_in_kv.long()[:, None]) \
+        & (row_of_tok >= 0)[:, None]                         # (T, S)
+    ok = ok[:, None, None, :]
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    out = torch.einsum("tgrs,tsgd->tgrd", p, vt.float())
+    out = out / p.sum(-1).clamp_min(1e-30)[..., None]
+    return out.reshape(total, Hq, d).to(q.dtype)
+
+
+def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
+                                 row_of_seg, past_lens, scale):
+    """The CUDA kernel.  q: (total, Hq, d) packed; pools (P, bs, Hkv, d),
+    contiguous fp32 or bf16 with d in (32, 64, 128) and Hq / Hkv <= 8;
+    block_table (B, nb), cu_seqlens (N + 1,), row_of_seg and past_lens
+    (N,), all int32.  Raises on anything else.  Padding tokens and
+    inactive segments come back as exact zeros."""
+    if not q.is_cuda:
+        raise ValueError("paged_prefill_attention_cuda needs CUDA tensors")
+    if q.dim() != 3 or k_pool.dim() != 4:
+        raise ValueError(f"q must be (total, Hq, d) and pools (P, bs, Hkv, "
+                         f"d), got {tuple(q.shape)} and "
+                         f"{tuple(k_pool.shape)}")
+    total, Hq, d = q.shape
+    P, bs, Hkv = k_pool.shape[:3]
+    B, nb = block_table.shape
+    N = row_of_seg.shape[0]
+    _check_geometry(q, k_pool)
+    dev = q.device
+    check_tensor("q", q, (total, Hq, d), q.dtype, dev)
+    check_tensor("k_pool", k_pool, (P, bs, Hkv, d), q.dtype, dev)
+    check_tensor("v_pool", v_pool, (P, bs, Hkv, d), q.dtype, dev)
+    check_tensor("block_table", block_table, (B, nb), torch.int32, dev)
+    check_tensor("cu_seqlens", cu_seqlens, (N + 1,), torch.int32, dev)
+    check_tensor("row_of_seg", row_of_seg, (N,), torch.int32, dev)
+    check_tensor("past_lens", past_lens, (N,), torch.int32, dev)
+    _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
+    # no block of the grid covers a padding token or an inactive segment
+    out = torch.zeros_like(q)
+    if N == 0 or total == 0:
+        return out
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.repro_paged_prefill_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), cu_seqlens.data_ptr(),
+            row_of_seg.data_ptr(), past_lens.data_ptr(), out.data_ptr(),
+            total, N, Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype],
+            stream)
+    check_launch(rc, "paged_prefill_attention")
+    LAUNCHES_PREFILL.count += 1
+    return out
+
+
+def paged_prefill_attention(q, cache: PagedDenseKVCache, cu_seqlens,
+                            row_of_seg, past_lens, *, scale: float):
+    """Packed ragged prefill over a paged dense cache.  q: (total, Hq, d),
+    N segments back to back; cu_seqlens (N + 1,) offsets (cu[N] may be <
+    total: the tail is padding); row_of_seg (N,) batch row per segment (-1
+    = inactive); past_lens (N,) tokens in the row's cache BEFORE this
+    chunk.  The chunk's K/V must already be appended (``append_packed``).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        return paged_prefill_attention_cuda(
+            q, cache.k, cache.v, cache.block_table, cu_seqlens, row_of_seg,
+            past_lens, scale)
+    _, _, row_of_tok, pos_in_kv = packed_token_layout(
+        cu_seqlens, row_of_seg, past_lens, q.shape[0])
+    return paged_prefill_attention_ref(q, cache.k, cache.v, cache.block_table,
+                                       row_of_tok, pos_in_kv, scale)

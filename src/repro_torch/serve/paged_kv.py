@@ -8,18 +8,24 @@ semantics: ``gather()`` equals the contiguous cache at every valid
 position.  Writes through an unallocated (``-1``) table entry are dropped.
 
 Appends write the pools IN PLACE (see ``repro_torch.core.kv_cache``).
-The host-side ``BlockPool`` allocator comes with the scheduler slice; this
-slice serves whole batches through identity block tables.
+
+``BlockPool`` is the host-side allocator the ``Scheduler`` drives: free
+list, per-block refcounts (prefix blocks shared through
+``repro_torch.serve.prefix_cache``), copy-on-write ``ensure_owned``.  Pure
+Python.  ``Server.generate`` keeps identity block tables (auto-sized
+pools); a Scheduler's server passes an explicit budget (``num_blocks >
+0``), and its tables start unallocated (-1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.kv_cache import scatter_kept
+from repro_torch.obs.metrics import registry as _obs_registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +36,95 @@ class PagedConfig:
 
     block_size: int = 16
     num_blocks: int = 0
+
+
+class BlockPool:
+    """Host-side free-list allocator with refcounted blocks.
+
+    Refcounts implement prefix sharing: a block referenced by the prefix
+    trie AND by live requests has ``ref > 1``; freeing decrements and the
+    block returns to the free list only at zero.  ``ensure_owned`` is the
+    copy-on-write primitive: a caller about to MUTATE a block gets a fresh
+    private id back — plus a flag telling it to copy the payload
+    (``copy_blocks``) — whenever the block is shared."""
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 name: str = "blocks"):
+        assert num_blocks >= 0 and block_size > 0
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.name = name             # metrics namespace: pool.<name>.*
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self._ref = [0] * num_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_blocks(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def refcount(self, bid: int) -> int:
+        return self._ref[bid]
+
+    def _publish(self) -> None:
+        """Mirror occupancy into the obs registry: utilization gauges plus
+        a live-blocks high-water mark."""
+        reg = _obs_registry()
+        if not reg.enabled:
+            return
+        live = self.num_blocks - len(self._free)
+        reg.set(f"pool.{self.name}.free_blocks", len(self._free))
+        reg.set(f"pool.{self.name}.live_blocks", live)
+        reg.set_max(f"pool.{self.name}.live_high_water", live)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh blocks at ref 1, or None (all-or-nothing)."""
+        if n < 0 or n > len(self._free):
+            _obs_registry().inc(f"pool.{self.name}.alloc_failures")
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        for b in ids:
+            self._ref[b] = 1
+        _obs_registry().inc(f"pool.{self.name}.allocs", n)
+        self._publish()
+        return ids
+
+    def incref(self, ids: Sequence[int]) -> None:
+        hi = 0
+        for b in ids:
+            assert self._ref[b] > 0, f"incref of free block {b}"
+            self._ref[b] += 1
+            if self._ref[b] > hi:
+                hi = self._ref[b]
+        if ids:
+            _obs_registry().set_max(
+                f"pool.{self.name}.refcount_high_water", hi)
+
+    def decref(self, ids: Sequence[int]) -> None:
+        for b in ids:
+            assert self._ref[b] > 0, f"double free of block {b}"
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+        if ids:
+            self._publish()
+
+    def ensure_owned(self, bid: int) -> Optional[tuple]:
+        """(owned_id, needs_copy).  Shared blocks come back as a fresh
+        allocation (the caller copies ``bid -> owned_id`` on the device and
+        swaps its table entry); exclusive blocks come back unchanged.  None
+        if the pool is exhausted (the caller preempts)."""
+        assert self._ref[bid] > 0, f"ensure_owned of free block {bid}"
+        if self._ref[bid] == 1:
+            return bid, False
+        got = self.alloc(1)
+        if got is None:
+            return None
+        self.decref([bid])
+        _obs_registry().inc(f"pool.{self.name}.cow_copies")
+        return got[0], True
 
 
 def _blocks_for(tokens: int, block_size: int) -> int:
@@ -94,6 +189,28 @@ class PagedDenseKVCache(NamedTuple):
         return PagedDenseKVCache(self.k, self.v, self.block_table,
                                  self.length + adv)
 
+    def append_packed(self, k_new, v_new, row_of_tok, pos_of_tok):
+        """Packed-varlen append, the write primitive of chunked prefill.
+        k_new/v_new: (total, Hkv, d); row_of_tok (total,): the batch row of
+        each token (-1 = padding, dropped); pos_of_tok (total,): the
+        token's absolute position in its row's KV space.  Writes through a
+        -1 table entry or past the table are dropped; each row's ``length``
+        advances by its token count in the stream."""
+        bs = self.block_size
+        B, nbt = self.block_table.shape
+        row = row_of_tok.long()
+        pos = pos_of_tok.long()
+        lb = pos // bs
+        blk = self.block_table.long()[row.clamp(0, B - 1), lb.clamp(0, nbt - 1)]
+        keep = (row >= 0) & (lb < nbt) & (blk >= 0)
+        scatter_kept(self.k, blk, pos % bs, k_new, keep)
+        scatter_kept(self.v, blk, pos % bs, v_new, keep)
+        counts = torch.zeros(B + 1, dtype=torch.int32, device=row.device)
+        counts.index_add_(0, torch.where(row < 0, B, row),
+                          torch.ones_like(row, dtype=torch.int32))
+        return PagedDenseKVCache(self.k, self.v, self.block_table,
+                                 self.length + counts[:B])
+
     def gather(self):
         """(k, v) in the contiguous (B, S, Hkv, d) layout."""
         bt = self.block_table.long().clamp(min=0)  # -1 -> junk, masked by length
@@ -102,3 +219,14 @@ class PagedDenseKVCache(NamedTuple):
         kk = self.k[bt].reshape(B, S, *self.k.shape[2:])
         vv = self.v[bt].reshape(B, S, *self.v.shape[2:])
         return kk, vv
+
+
+def copy_blocks(cache: PagedDenseKVCache, src, dst) -> PagedDenseKVCache:
+    """Copy pool blocks ``src -> dst`` (both (n,) integer) in place — the
+    device half of copy-on-write (``BlockPool.ensure_owned`` is the host
+    half)."""
+    src = torch.as_tensor(src, dtype=torch.long, device=cache.k.device)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=cache.k.device)
+    cache.k[dst] = cache.k[src]
+    cache.v[dst] = cache.v[src]
+    return cache

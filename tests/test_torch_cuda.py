@@ -200,3 +200,114 @@ def test_mosa_autograd_function_matches_autograd_of_plain(dev, dtype, case):
     for name, a, b in zip(("dq", "dk", "dv", "dr"), got, want):
         torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
                                    rtol=_tol(dtype), msg=name)
+
+
+# Packed prefill (#12): (Hq, Hkv, d, bs, nb, segs, total, share).  segs are
+# (row, past, len), row -1 inactive; total past the last segment leaves a
+# padding tail; ``share`` blocks at the head of rows 0 and 1 are the same
+# (a prefix hit).  The edge segments: past 0; a past off the block grid
+# ending on a block boundary; one token; an inactive segment; the tail.
+_EDGE = [(0, 0, 5), (1, 13, 3), (2, 7, 1), (-1, 0, 4), (3, 9, 6)]
+PREFILL_CASES = [
+    (4, 4, 64, 16, 72, [(0, 0, 64), (1, 256, 64), (2, 512, 64),
+                        (3, 960, 64)], 256, 0),
+    (4, 4, 32, 4, 6, _EDGE, 24, 0),
+    (8, 2, 64, 4, 6, _EDGE, 24, 0),
+    (8, 2, 128, 8, 5, [(0, 0, 33), (1, 8, 7)], 48, 1),
+    (4, 4, 64, 4, 6, [(0, 4, 6), (1, 8, 5), (2, 0, 3)], 16, 2),
+]
+
+
+def _prefill_inputs(dev, Hq, Hkv, d, bs, nb, segs, total, share, seed=4):
+    """Pools of B * nb blocks under a random permutation, each row's table
+    -1 past the blocks its tokens fill."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = max(r for r, _, _ in segs) + 1
+    P = B * nb
+    kp = torch.randn(P, bs, Hkv, d, device=dev, generator=g)
+    vp = torch.randn(P, bs, Hkv, d, device=dev, generator=g)
+    table = torch.randperm(P, device=dev, generator=g).view(B, nb).clone()
+    if share:
+        table[1, :share] = table[0, :share]
+    fill = [0] * B
+    for r, past, L in segs:
+        if r >= 0:
+            fill[r] = max(fill[r], -(-(past + L) // bs))
+    fill = torch.tensor(fill, device=dev)
+    table = torch.where(torch.arange(nb, device=dev)[None] < fill[:, None],
+                        table, -1).to(torch.int32).contiguous()
+    lens = [L for _, _, L in segs]
+    cu = torch.tensor([0] + [sum(lens[:i + 1]) for i in range(len(lens))],
+                      dtype=torch.int32, device=dev)
+    rows = torch.tensor([r for r, _, _ in segs], dtype=torch.int32,
+                        device=dev)
+    past = torch.tensor([p for _, p, _ in segs], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(total, Hq, d, device=dev, generator=g)
+    return q, kp, vp, table, cu, rows, past
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_paged_prefill_kernel_matches_plain(dev, dtype, case):
+    from repro_torch.serve.paged_attention import (
+        LAUNCHES_PREFILL, packed_token_layout, paged_prefill_attention_cuda,
+        paged_prefill_attention_ref)
+    q, kp, vp, table, cu, rows, past = _prefill_inputs(dev, *case)
+    q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+    scale = q.shape[-1] ** -0.5
+    before = LAUNCHES_PREFILL.count
+    got = paged_prefill_attention_cuda(q, kp, vp, table, cu, rows, past,
+                                       scale)
+    assert LAUNCHES_PREFILL.count == before + 1
+    _, _, row_of_tok, pos = packed_token_layout(cu, rows, past, q.shape[0])
+    want = paged_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                       table, row_of_tok, pos, scale)
+    torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    dead = row_of_tok < 0
+    assert (got[dead] == 0).all()
+
+
+def test_scheduler_card_matches_cpu(dev):
+    """The smoke model's Scheduler on the card (kernels #11, #12) and on the
+    CPU (their plain versions), same weights: identical greedy tokens and
+    identical stats over mixed lengths and a shared prefix.  A MoSA model
+    hits only on a trie node with a snapshot, which a request inserts at
+    its own last full block: the first sharing prompt's short tail puts
+    that at depth 32, inside the shared 40 tokens, so the second hits."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve import paged_attention as kp
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = get_config("mosa-paper", preset="smoke", variant="mosa")
+    cfg = dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
+                                                            impl="kernel"))
+    paged = PagedConfig(block_size=16, num_blocks=20)
+    gpu = Server(cfg, batch=2, max_len=128, paged=paged, seed=3)
+    state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    cpu = Server(cfg, batch=2, max_len=128, paged=paged, params=state,
+                 device="cpu")
+    g = torch.Generator().manual_seed(5)
+    shared = torch.randint(2, cfg.vocab, (40,), generator=g)
+    prompts = [torch.randint(2, cfg.vocab, (L,), generator=g)
+               for L in (70, 9)]
+    prompts += [torch.cat([shared, torch.randint(2, cfg.vocab, (L,),
+                                                 generator=g)])
+                for L in (5, 30)]
+    out = {}
+    for name, srv in (("gpu", gpu), ("cpu", cpu)):
+        sched = Scheduler(srv, chunk=4, chunk_tokens=64)
+        for i, p in enumerate(prompts):
+            sched.submit(p, max_new=6 + i)
+        before = kp.LAUNCHES_PREFILL.count
+        out[name] = (sched.run(), dict(sched.stats),
+                     kp.LAUNCHES_PREFILL.count - before)
+    (rg, sg, lg), (rc, sc, lc) = out["gpu"], out["cpu"]
+    assert sg == sc and sg["prefix_hits"] >= 1
+    assert lg == cfg.n_layers * sg["prefill_chunks"] and lc == 0
+    for rid in rc:
+        assert torch.equal(rg[rid], rc[rid]), rid

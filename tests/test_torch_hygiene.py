@@ -36,12 +36,14 @@ def test_port_sources_import_no_jax_and_no_reference_package():
 
 def test_port_imports_with_jax_and_reference_blocked():
     """A fresh interpreter where ``import jax`` / ``import repro`` fail still
-    imports the whole serving and training paths."""
+    imports the whole serving (batch and Scheduler) and training paths."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None;"
             "sys.modules['triton'] = None;"
             "import repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.mosa_vjp, "
-            "repro_torch.launch.train; print('ok')")
+            "repro_torch.launch.train, repro_torch.serve.scheduler, "
+            "repro_torch.obs, repro_torch.serve.loadgen, "
+            "repro_torch.serve.prefix_cache; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -64,3 +66,15 @@ def test_server_refuses_cpu_fallback(monkeypatch):
     cfg = get_config("mosa-paper", preset="smoke", variant="mosa")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(cfg, batch=1, max_len=32)
+
+
+def test_serve_cli_refuses_cpu_fallback(monkeypatch):
+    """``python -m repro_torch.launch.serve`` without ``--device`` means the
+    card: with no CUDA device it raises rather than running on the CPU."""
+    from repro_torch.launch.serve import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--preset", "smoke", "--variant", "mosa", "--batch", "1",
+              "--prompt-len", "4", "--gen", "2", "--max-len", "16"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--preset", "smoke", "--variant", "mosa", "--load-rate", "1"])
