@@ -14,7 +14,11 @@ Phases (any failure raises, so the script exits nonzero):
      training forward (o_pre, lse), the dq and dk/dv backward kernels, the
      autograd Function that joins them (grads of q, k, v and r against
      autograd of the plain version), paged decode and packed paged
-     prefill (padding tokens and inactive segments exact zeros);
+     prefill (padding tokens and inactive segments exact zeros), and the
+     four block-choice kernels (#5-#8) and their autograd Function at the
+     block slice's shape and at edge cases (a ragged last block, empty
+     blocks, two segments, d 32 and 128, bs 64), plus #5/#6 at bs = 1
+     against #1/#2 (bitwise equality reported);
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
@@ -54,11 +58,28 @@ Phases (any failure raises, so the script exits nonzero):
  13. the Scheduler on the card against the CPU at full width and the same
      weights: batch 2, 128-token chunks, 4 requests of 96-320 tokens (two
      behind a shared 160-token prefix), 8 greedy tokens each — identical
-     tokens and identical stats.
+     tokens and identical stats;
+ 14. block-choice MoSA (``selection_granularity="block"``, blocks of 16)
+     served like phase 5: launches over the generate exactly 6 for #5 and
+     6 * 127 for paged decode, 0 for every other kernel;
+ 15. phase 6 for block choice: identical tokens and identical selected
+     blocks in every layer; then phase 7 for block choice (one decode
+     step profiled);
+ 16. block-choice training like phase 8: over the 3 timed steps exactly
+     144 launches each of #6, #7 and #8, 0 for #1-#5;
+ 17. phase 9 for block choice: identical block selections in every layer,
+     the loss within 1e-5 relative, every grad within 1e-4;
+ 18. the block-choice Scheduler at full width (batch 8, 576 blocks of 16,
+     256-token chunks of one segment each): a 512-token prefix with one
+     token of its own and 7 prompts continuing the prefix by 64-256
+     tokens, 16 tokens each, with the prefix cache on and off — identical
+     tokens, at least one hit; launches of packed prefill = 6 x chunks, of
+     paged decode = 6 x decode steps, of #1-#8 = 0;
+ 19. phase 13 for block choice.
 
-The last six lines are the ``serve`` JSON, the ``train`` JSON, the
-``sched`` JSON, the ``kernels`` JSON, the ``nvidia-smi`` name and power
-limit, and the result JSON.
+The last seven lines are the ``serve`` JSON, the ``train`` JSON, the
+``sched`` JSON, the ``block`` JSON, the ``kernels`` JSON, the
+``nvidia-smi`` name and power limit, and the result JSON.
 """
 
 from __future__ import annotations
@@ -252,6 +273,155 @@ def check_train_kernels(torch, dev, gen, errs):
                                          errs["mosa_attention_bwd.dv"])
 
 
+# Block choice (#5-#8): the slice's shape (B*H = 2208, NB 2, bs 16, S 32,
+# d 64) and edge cases: a ragged last block (T % bs != 0) in every case but
+# the slice, empty blocks (bidx -1, sorted last), two segments, d 32 and
+# 128, a block wider than the kernels' 32-key tile.
+BLOCK_CASES = {
+    "slice (8,276) NB=2 bs=16 d=64": dict(B=8, H=276, NB=2, bs=16, d=64,
+                                          T=1024),
+    "bs=4, T % bs != 0, empty blocks": dict(B=2, H=3, NB=9, bs=4, d=64,
+                                            T=101, empty=6),
+    "bs=8 d=32, two segments, empty": dict(B=2, H=3, NB=5, bs=8, d=32,
+                                           T=77, empty=3, two_segs=True),
+    "bs=4 d=128, two segments, empty": dict(B=1, H=2, NB=6, bs=4, d=128,
+                                            T=50, empty=2, two_segs=True),
+    "bs=64, wider than a key tile": dict(B=1, H=2, NB=2, bs=64, d=64, T=150,
+                                         two_segs=True),
+}
+
+
+def block_inputs(torch, B, H, NB, bs, d, T, dev, gen, empty=0,
+                 two_segs=False):
+    """Per (b, h) NB sorted distinct blocks of a length-T sequence: block 0
+    (forced, as the layer forces it), the last, short block when bs does
+    not divide T, and random others; ``empty`` random slots set to -1 and
+    sorted last, as the layer keeps them."""
+    nbt = -(-T // bs)
+    ragged = int(T % bs != 0)
+    perm = torch.rand(B, H, nbt - 1 - ragged, device=dev,
+                      generator=gen).argsort(-1)
+    bidx = torch.cat([torch.zeros(B, H, 1, device=dev, dtype=torch.long),
+                      perm[..., :NB - 1 - ragged] + 1,
+                      torch.full((B, H, ragged), nbt - 1, device=dev)], -1)
+    bidx = bidx.sort(-1).values
+    if empty:
+        bidx.view(-1)[torch.randint(0, bidx.numel(), (empty,), device=dev,
+                                    generator=gen)] = -1
+        key = torch.where(bidx < 0, 2 ** 31 - 1, bidx).sort(-1).values
+        bidx = torch.where(key == 2 ** 31 - 1, -1, key)
+    S = NB * bs
+    q, k, v = (torch.randn(B, H, S, d, device=dev, generator=gen)
+               for _ in range(3))
+    rblk = torch.sigmoid(torch.randn(B, H, NB, device=dev, generator=gen))
+    seg = None
+    if two_segs:
+        pos = (bidx[..., None] * bs + torch.arange(bs, device=dev)).flatten(-2)
+        seg = (pos.clamp(min=0) >= T // 2).to(torch.int32)
+    return q, k, v, bidx.to(torch.int32).contiguous(), rblk, seg
+
+
+def check_block_kernels(torch, dev, gen, errs):
+    """#5 and #6 against their plain versions (invalid query rows exact
+    zeros), #7 and #8 on the same g~, lse and delta as theirs, and the
+    autograd Function against autograd of ``mosa_block_attention_ref``."""
+    from repro_torch.kernels import mosa_block as kb
+    for case, kw in BLOCK_CASES.items():
+        q, k, v, bidx, rblk, seg = block_inputs(torch, dev=dev, gen=gen,
+                                                **kw)
+        bs, T = kw["bs"], kw["T"]
+        _, ok = kb.expand_blocks(bidx, bs, T)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+
+        def zeros_outside(out, name):
+            if (out[~ok] != 0).any():
+                raise AssertionError(f"{name} ({case}): invalid query rows "
+                                     "not zero")
+            return out
+
+        check_case(
+            torch,
+            lambda dt: zeros_outside(kb.mosa_block_attention_cuda(
+                q.to(dt), k.to(dt), v.to(dt), bidx, rblk, bs, T, seg=seg),
+                "mosa_block_attention"),
+            lambda dt: kb.mosa_block_attention_ref(
+                *(x.to(dt).float() for x in (q, k, v)), bidx, rblk, bs, T,
+                seg=seg),
+            "mosa_block_attention", case, errs)
+        check_case(
+            torch,
+            lambda dt: kb.mosa_block_attention_fwd_res_cuda(
+                q.to(dt), k.to(dt), v.to(dt), bidx, bs, T, seg=seg),
+            lambda dt: kb.mosa_block_attention_fwd_res_ref(
+                *(x.to(dt).float() for x in (q, k, v)), bidx, bs, T,
+                seg=seg),
+            "mosa_block_attention_fwd_res", case, errs, ("o_pre", "lse"))
+
+        def bwd(dt, kernel):
+            qq, kk, vv = (x.to(dt) for x in (q, k, v))
+            o_pre, lse = kb.mosa_block_attention_fwd_res_ref(
+                *(x.float() for x in (qq, kk, vv)), bidx, bs, T, seg=seg)
+            gt = torch.where(ok[..., None], g, 0.0).contiguous()
+            delta = (gt * o_pre).sum(-1).contiguous()
+            args = (gt, lse, delta, bs, T)
+            if kernel:
+                dq = kb.mosa_block_attention_bwd_dq_cuda(qq, kk, vv, bidx,
+                                                         *args, seg=seg)
+                return (dq,) + kb.mosa_block_attention_bwd_dkv_cuda(
+                    qq, kk, vv, bidx, *args, seg=seg)
+            return kb.mosa_block_attention_bwd_ref(
+                *(x.float() for x in (qq, kk, vv)), bidx, *args, seg=seg)
+
+        check_case(torch, lambda dt: bwd(dt, True), lambda dt: bwd(dt, False),
+                   "mosa_block_attention_bwd", case, errs, ("dq", "dk", "dv"))
+
+        def function_grads(dt, plain):
+            leaves = [x.to(dt).float() if plain else x.to(dt)
+                      for x in (q, k, v)] + [rblk]
+            leaves = [x.clone().requires_grad_() for x in leaves]
+            fn = (kb.mosa_block_attention_ref if plain
+                  else kb.mosa_block_attention)
+            out = fn(*leaves[:3], bidx, leaves[3], bs, T, seg=seg)
+            gg = g.to(dt).float() if plain else g
+            return torch.autograd.grad((out.float() * gg).sum(), leaves)
+
+        check_case(torch, lambda dt: function_grads(dt, False),
+                   lambda dt: function_grads(dt, True),
+                   "mosa_block_attention_function", case, errs,
+                   ("dq", "dk", "dv", "dr_blk"))
+    errs["mosa_block_attention_fwd_res"] = max(
+        errs["mosa_block_attention_fwd_res.o_pre"],
+        errs["mosa_block_attention_fwd_res.lse"])
+    errs["mosa_block_attention_bwd_dq"] = errs["mosa_block_attention_bwd.dq"]
+    errs["mosa_block_attention_bwd_dkv"] = max(
+        errs["mosa_block_attention_bwd.dk"], errs["mosa_block_attention_bwd.dv"])
+    check_block_bs1(torch, dev, gen)
+
+
+def check_block_bs1(torch, dev, gen):
+    """#5 and #6 at bs = 1 against #1 and #2 on the same inputs: the block
+    kernels stage the same values and run the same float operations, so
+    they should agree bit for bit; anything else must stay within the fp32
+    tolerance."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, idx, r, seg = mosa_inputs(torch, 2, 3, 37, 64, 200, dev, gen,
+                                       zero_rows=10, with_seg=True)
+    pairs = [
+        ("#5 vs #1", kb.mosa_block_attention_cuda(q, k, v, idx, r, 1, 200,
+                                                  seg=seg),
+         km.mosa_attention_cuda(q, k, v, idx, r, seg=seg)),
+        ("#6 vs #2", torch.cat([t.flatten() for t in
+                                kb.mosa_block_attention_fwd_res_cuda(
+                                    q, k, v, idx, 1, 200, seg=seg)]),
+         torch.cat([t.flatten() for t in km.mosa_attention_fwd_res_cuda(
+             q, k, v, idx, seg=seg)]))]
+    for name, a, b in pairs:
+        e = max_err(torch, a, b, FP32_TOL, FP32_TOL)
+        log(f"  bs=1 {name}: bitwise equal {torch.equal(a, b)}, max|err| "
+            f"{e:.3e}")
+
+
 # Packed prefill (#12): segments (row, past, len), row -1 inactive; the
 # total past the last segment is a padding tail; ``share`` blocks at the
 # head of rows 0 and 1 are the same physical blocks (a prefix hit).
@@ -375,6 +545,7 @@ def check_kernels(torch, dev):
                 scale),
             "paged_attention_decode", case, errs)
     check_prefill_kernel(torch, dev, gen, errs)
+    check_block_kernels(torch, dev, gen, errs)
     return errs
 
 
@@ -434,6 +605,7 @@ def time_kernels(torch, dev):
 
     out["paged_prefill_attention"] = time_prefill_kernel(torch, dev, gen,
                                                          flush)
+    out.update(time_block_kernels(torch, dev, gen, flush))
 
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -499,6 +671,66 @@ def time_prefill_kernel(torch, dev, gen, flush):
         bytes=nbytes, flops=4 * pairs * Hq * d)
 
 
+def time_block_kernels(torch, dev, gen, flush):
+    """#5-#8 at the block slice's shapes (fp32): 8 x 276 rows of NB = 2
+    blocks of 16 (S 32), d 64, T 1024.  Bytes: q, k, v (and g~ in the
+    backward) read once, the block table and scores (NB per row, not S),
+    lse and delta, each output written once; operations: 2*d per product of
+    two d-vectors over the valid (query, key) pairs of this run's blocks.
+    The yardstick is SDPA with the equivalent boolean mask over the
+    expanded positions (forward for #5 and #6, its backward for #7 and
+    #8, which computes dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mosa_block as kb
+    kw = BLOCK_CASES["slice (8,276) NB=2 bs=16 d=64"]
+    q, k, v, bidx, rblk, _ = block_inputs(torch, dev=dev, gen=gen, **kw)
+    B, H, S, d = q.shape
+    NB, bs, T = kw["NB"], kw["bs"], kw["T"]
+    pos, ok = kb.expand_blocks(bidx, bs, T)
+    mask = ((pos[..., :, None] >= pos[..., None, :]) & ok[..., None, :])
+    pairs = int(mask.sum())
+    vec, row, blk = B * H * S * d * 4, B * H * S * 4, B * H * NB * 4
+    o_pre, lse = kb.mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs, T)
+    g = torch.randn(q.shape, device=dev, generator=gen)
+    gt = torch.where(ok[..., None], g, 0.0).contiguous()
+    delta = (gt * o_pre).sum(-1).contiguous()
+    bwd_args = (q, k, v, bidx, gt, lse, delta, bs, T)
+    plain_bwd_ms = time_ms(torch, lambda: kb.mosa_block_attention_bwd_ref(
+        *bwd_args), flush=flush)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, leaves, g, retain_graph=True), flush=flush)
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), flush=flush)
+    return {
+        "mosa_block_attention": dict(
+            ms=time_ms(torch, lambda: kb.mosa_block_attention_cuda(
+                q, k, v, bidx, rblk, bs, T), flush=flush),
+            plain_ms=time_ms(torch, lambda: kb.mosa_block_attention_ref(
+                q, k, v, bidx, rblk, bs, T), flush=flush),
+            library_ms=sdpa_ms, bytes=4 * vec + 2 * blk,
+            flops=4 * pairs * d),
+        "mosa_block_attention_fwd_res": dict(
+            ms=time_ms(torch, lambda: kb.mosa_block_attention_fwd_res_cuda(
+                q, k, v, bidx, bs, T), flush=flush),
+            plain_ms=time_ms(torch, lambda: kb.mosa_block_attention_fwd_res_ref(
+                q, k, v, bidx, bs, T), flush=flush),
+            library_ms=sdpa_ms, bytes=4 * vec + row + blk,
+            flops=4 * pairs * d),
+        "mosa_block_attention_bwd_dq": dict(
+            ms=time_ms(torch, lambda: kb.mosa_block_attention_bwd_dq_cuda(
+                *bwd_args), flush=flush),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            bytes=5 * vec + 2 * row + blk, flops=6 * pairs * d),
+        "mosa_block_attention_bwd_dkv": dict(
+            ms=time_ms(torch, lambda: kb.mosa_block_attention_bwd_dkv_cuda(
+                *bwd_args), flush=flush),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            bytes=6 * vec + 2 * row + blk, flops=8 * pairs * d),
+    }
+
+
 def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     """The training kernels at the slice's shapes (fp32).  Bytes: each
     input read once, each output written once; operations: 2*d per product
@@ -553,25 +785,51 @@ def kernel_counters():
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels import mosa_attention as kmosa
     from repro_torch.kernels import mosa_backward as kbwd
+    from repro_torch.kernels import mosa_block as kblock
     from repro_torch.serve import paged_attention as kpaged
     return {c.name: c for c in (kmosa.LAUNCHES, kmosa.LAUNCHES_FWD_RES,
                                 kbwd.LAUNCHES_DQ, kbwd.LAUNCHES_DKV,
+                                kblock.LAUNCHES, kblock.LAUNCHES_FWD_RES,
+                                kblock.LAUNCHES_DQ, kblock.LAUNCHES_DKV,
                                 kpaged.LAUNCHES, kpaged.LAUNCHES_PREFILL)}
 
 
+def want_launches(**counts):
+    """Expected launch counts: ``counts`` by kernel name, 0 for every other
+    kernel."""
+    return {name: counts.get(name, 0) for name in kernel_counters()}
+
+
 # -------------------------------------------------------------- main path
-def serve_slice(torch):
+def slice_config(**mosa):
+    """``mosa-paper-tiny-mosa32`` on the kernel path; ``mosa`` overrides
+    fields of its MoSA config (block choice: ``selection_granularity`` and
+    ``sel_block_size``)."""
     from repro_torch.configs.base import get_config
+    cfg = get_config("mosa-paper", preset="full", size="tiny", variant="mosa")
+    return dataclasses.replace(cfg, mosa=dataclasses.replace(
+        cfg.mosa, impl="kernel", **mosa))
+
+
+BLOCK_MOSA = dict(selection_granularity="block", sel_block_size=16)
+
+
+def serve_slice(torch, cfg=None):
+    """Paged serving at full width through ``Server.generate``: batch 8,
+    prompt 1024, 128 greedy tokens.  Expected launches over the counted
+    generate: one MoSA prefill kernel per layer (#1, or #5 with block
+    choice) and the paged decode kernel per layer and decode step."""
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
 
-    cfg = get_config("mosa-paper", preset="full", size="tiny", variant="mosa")
-    cfg = dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
-                                                            impl="kernel"))
+    cfg = cfg or slice_config()
+    block = cfg.mosa.selection_granularity == "block"
     B, P, G, max_len = 8, 1024, 128, 1152
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.mosa.n_dense_heads} dense + {cfg.mosa.n_mosa_heads} MoSA heads,"
-        f" vocab {cfg.vocab}, {cfg.param_dtype}")
+        f" vocab {cfg.vocab}, {cfg.param_dtype}, "
+        f"{cfg.mosa.selection_granularity} choice"
+        + (f" (blocks of {cfg.mosa.sel_block_size})" if block else ""))
     server = Server(cfg, batch=B, max_len=max_len,
                     paged=PagedConfig(block_size=16), seed=0)
     n_params = sum(p.numel() for p in server.model.parameters())
@@ -611,10 +869,9 @@ def serve_slice(torch):
     peak = torch.cuda.max_memory_allocated()
     del server.model.decode_many
 
-    want = {"mosa_attention": cfg.n_layers, "mosa_attention_fwd_res": 0,
-            "mosa_attention_bwd_dq": 0, "mosa_attention_bwd_dkv": 0,
-            "paged_attention_decode": cfg.n_layers * (G - 1),
-            "paged_prefill_attention": 0}
+    want = want_launches(**{
+        "mosa_block_attention" if block else "mosa_attention": cfg.n_layers,
+        "paged_attention_decode": cfg.n_layers * (G - 1)})
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if toks.shape != (B, G) or not ((toks >= 0) & (toks < cfg.vocab)).all():
@@ -623,6 +880,8 @@ def serve_slice(torch):
         sc = c["sparse"]
         if not torch.isfinite(sc.k).all() or not torch.isfinite(c["dense"].k).all():
             raise AssertionError("non-finite cache contents")
+        if block and not ((sc.bidx[..., :-1] >= 0).sum(-1) > 0).all():
+            raise AssertionError("a MoSA head holds no candidate block")
         if int(c["dense"].length.min()) != P + G - 1:
             raise AssertionError("dense cache length wrong")
     res = dict(params=n_params, prefill_ms=prefill_s * 1e3,
@@ -691,7 +950,8 @@ def profile_summary(torch, prof, wall_ms, steps):
 
 
 def cross_check(torch, server, cfg, prompts):
-    """The card against the CPU: same weights, batch 1, prompt 256."""
+    """The card against the CPU: same weights, batch 1, prompt 256.  With
+    block choice every layer's selected blocks must be identical too."""
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
     P, G = 256, 8
@@ -704,14 +964,20 @@ def cross_check(torch, server, cfg, prompts):
         lg, _ = gpu.model.prefill(p.cuda(), gpu.new_cache())
         lc, _ = cpu.model.prefill(p, cpu.new_cache())
     err = (lg.cpu() - lc).abs().max().item()
-    tg, _ = gpu.generate(p, G)
-    tc, _ = cpu.generate(p, G)
+    tg, cg = gpu.generate(p, G)
+    tc, cc = cpu.generate(p, G)
     log(f"  prefill logits max|gpu - cpu| {err:.3e} (tol 1e-3); tokens "
         f"gpu {tg[0].tolist()} cpu {tc[0].tolist()}")
     if not err <= 1e-3:
         raise AssertionError(f"prefill logits differ by {err}")
     if not torch.equal(tg.cpu(), tc):
         raise AssertionError("greedy tokens differ between card and CPU")
+    if cfg.mosa.selection_granularity == "block":
+        differ = [int((a["sparse"].bidx.cpu() != b["sparse"].bidx).any(-1)
+                      .sum()) for a, b in zip(cg, cc)]
+        log(f"  heads whose blocks differ, per layer: {differ}")
+        if any(differ):
+            raise AssertionError(f"block selections differ: {differ}")
     return err
 
 
@@ -719,12 +985,13 @@ def cross_check(torch, server, cfg, prompts):
 TRAIN_STEPS = 4             # the first is untimed
 
 
-def train_slice(torch):
+def train_slice(torch, **mosa):
     """Full-width training through ``Trainer``: the counters are zeroed
-    once the untimed first step has returned, and read after the last."""
+    once the untimed first step has returned, and read after the last.
+    ``mosa`` overrides the MoSA config (block choice)."""
     from repro_torch.train.loop import TrainConfig, Trainer
     cfg = TrainConfig(arch="mosa-paper", preset="full",
-                      arch_kwargs={"variant": "mosa"}, seq_len=1024,
+                      arch_kwargs={"variant": "mosa", **mosa}, seq_len=1024,
                       global_batch=64, microbatch=8, lr=2.5e-4,
                       clip_norm=0.25, steps=TRAIN_STEPS, mosa_impl="kernel",
                       remat="none", log_every=1, seed=0)
@@ -757,10 +1024,10 @@ def train_slice(torch):
 
     timed = TRAIN_STEPS - 1
     per_layer = mc.n_layers * cfg.microbatch * timed
-    want = {"mosa_attention": 0, "mosa_attention_fwd_res": per_layer,
-            "mosa_attention_bwd_dq": per_layer,
-            "mosa_attention_bwd_dkv": per_layer, "paged_attention_decode": 0,
-            "paged_prefill_attention": 0}
+    pre = ("mosa_block_attention" if mc.mosa.selection_granularity == "block"
+           else "mosa_attention")
+    want = want_launches(**{f"{pre}_{k}": per_layer
+                            for k in ("fwd_res", "bwd_dq", "bwd_dkv")})
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     losses = [h["loss"] for h in history]
@@ -788,16 +1055,22 @@ def train_slice(torch):
 
 
 def layer_selections(torch, model, tokens):
-    """Each MoSA layer's selected indices (B, H, k) on ``tokens``."""
-    from repro_torch.core.router import select_topk
+    """Each MoSA layer's selected indices (B, H, k) on ``tokens``: tokens,
+    or blocks with block choice."""
+    from repro_torch.core.router import block_pool_scores, select_topk
     out = []
+    T = tokens.shape[1]
     with torch.no_grad():
         x = model.embed(tokens)
         for layer in model.layers:
             sp = layer.mixer.sparse
-            _, idx = select_topk(sp.router.scores(layer.norm1(x)),
-                                 sp.k_for(tokens.shape[1]),
-                                 sp.cfg.force_first_token)
+            scores = sp.router.scores(layer.norm1(x))
+            if sp.cfg.selection_granularity == "block":
+                scores, k = (block_pool_scores(scores, sp.cfg.sel_block_size),
+                             sp.kb_for(T))
+            else:
+                k = sp.k_for(T)
+            _, idx = select_topk(scores, k, sp.cfg.force_first_token)
             out.append(idx.cpu())
             x, _ = layer(x)
     return out
@@ -898,13 +1171,6 @@ def profile_train(torch, trainer, steps=2):
 
 # ------------------------------------------------------ Scheduler serving
 SCHED_MAX_LEN, SCHED_BS, SCHED_BLOCKS = 1152, 16, 576
-
-
-def sched_config():
-    from repro_torch.configs.base import get_config
-    cfg = get_config("mosa-paper", preset="full", size="tiny", variant="mosa")
-    return dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
-                                                             impl="kernel"))
 
 
 def sched_requests(vocab, seed=2):
@@ -1016,7 +1282,7 @@ def sched_slice(torch):
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
     from repro_torch.serve.scheduler import Scheduler
-    cfg = sched_config()
+    cfg = slice_config()
     server = Server(cfg, batch=8, max_len=SCHED_MAX_LEN,
                     paged=PagedConfig(block_size=SCHED_BS,
                                       num_blocks=SCHED_BLOCKS), seed=0)
@@ -1070,10 +1336,9 @@ def sched_slice(torch):
         raise AssertionError(f"blocks leaked: {pool.free_blocks} free + "
                              f"{sched.prefix.n_nodes} trie nodes != "
                              f"{pool.num_blocks}")
-    want = {"mosa_attention": 0, "mosa_attention_fwd_res": 0,
-            "mosa_attention_bwd_dq": 0, "mosa_attention_bwd_dkv": 0,
-            "paged_attention_decode": cfg.n_layers * decode_steps,
-            "paged_prefill_attention": cfg.n_layers * st["prefill_chunks"]}
+    want = want_launches(
+        paged_attention_decode=cfg.n_layers * decode_steps,
+        paged_prefill_attention=cfg.n_layers * st["prefill_chunks"])
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if st["prefix_hits"] < 1:
@@ -1156,7 +1421,8 @@ def preempt_slice(torch, server):
 
 
 def sched_cross_check(torch, server):
-    """[13]: the Scheduler on the card and on the CPU, same weights."""
+    """[13] and [19]: the Scheduler on the card and on the CPU, the weights
+    and config of ``server``."""
     import numpy as np
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
@@ -1193,6 +1459,76 @@ def sched_cross_check(torch, server):
     return dict(stats=sg)
 
 
+def block_sched_slice(torch, server):
+    """[18]: the block-choice Scheduler at full width: a bare 512-token
+    prefix (with one token of its own) and 7 prompts that continue the
+    prefix by 64-256 tokens, 16 tokens each, with the prefix cache on (the
+    counted run) and off.  The 7 wait for the first one's snapshot at its
+    last full block (512) and hit it.  A block-choice snapshot at a block
+    boundary holds completed blocks only, a function of the prefix; but
+    every layer of this model is MoSA, and a chunk's outputs feed the next
+    layer's selection, so tokens reproduce only for the same chunk
+    boundaries.  One segment per 256-token chunk makes them the same in
+    both runs (multiples of 256 from each row's start: 0, or the hit at
+    512), so the tokens must be identical with and without the cache."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = server.model_cfg
+    rng = np.random.default_rng(8)
+    shared = rng.integers(2, cfg.vocab, 512)
+    tails = [1] + [int(rng.integers(64, 257)) for _ in range(7)]
+    prompts = [np.concatenate([shared, rng.integers(2, cfg.vocab, L)])
+               for L in tails]
+    kw = dict(chunk=8, chunk_tokens=256, max_prefill_segs=1)
+    out = {}
+    for cached in (True, False):
+        obs.set_enabled(True)
+        obs.registry().reset()
+        sched = Scheduler(server, prefix_cache=cached, **kw)
+        rids = [sched.submit(p.astype(np.int32), 16) for p in prompts]
+        counters = kernel_counters()
+        for c in counters.values():
+            c.count = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = sched.run(max_steps=100_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.count for name, c in counters.items()}
+        steps = int(obs.registry().snapshot()["counters"]
+                    ["server.decode_steps"])
+        st = dict(sched.stats)
+        want = want_launches(
+            paged_attention_decode=cfg.n_layers * steps,
+            paged_prefill_attention=cfg.n_layers * st["prefill_chunks"])
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        if any(len(res[r]) != 16 for r in rids):
+            raise AssertionError("a request did not get its 16 tokens")
+        out[cached] = dict(tokens=[res[r] for r in rids], stats=st,
+                           wall_s=wall, decode_steps=steps,
+                           launches=launches,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30)
+        log(f"  prefix cache {'on ' if cached else 'off'}: {wall:.2f} s, "
+            f"stats {st}, {steps} decode steps, launches {launches}")
+    on, off = out[True], out[False]
+    if on["stats"]["prefix_hits"] < 1:
+        raise AssertionError(f"no prefix hit: {on['stats']}")
+    if any(not torch.equal(a, b) for a, b in zip(on["tokens"],
+                                                 off["tokens"])):
+        raise AssertionError("tokens differ with and without the prefix "
+                             "cache")
+    log(f"  identical tokens with and without the prefix cache; "
+        f"{on['stats']['prefix_hits']} hits of "
+        f"{on['stats']['prefix_hit_tokens']} tokens")
+    for r in out.values():
+        del r["tokens"]
+    return {"prefix_cache_on": on, "prefix_cache_off": off}
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -1202,6 +1538,8 @@ def main():
         sys.exit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1260,6 +1598,35 @@ def main():
     sched["cross_check"] = sched_cross_check(torch, sched_server)
     del sched_server
 
+    block = {}
+    log("[14] main path: block-choice paged serving at full width")
+    bserver, bcfg, bprompts, block["serve"] = serve_slice(
+        torch, slice_config(**BLOCK_MOSA))
+
+    log("[15] card vs CPU for block-choice serving at full width")
+    block["serve"]["cross_check_err"] = cross_check(torch, bserver, bcfg,
+                                                    bprompts)
+    block["serve"]["decode_step"] = profile_decode(torch, bserver, bprompts)
+    del bserver
+
+    log("[16] main path: block-choice training at full width")
+    btrainer, block["train"] = train_slice(torch, **BLOCK_MOSA)
+
+    log("[17] card vs CPU for block-choice training at full width")
+    block["train"]["cross_check"] = train_cross_check(torch, btrainer)
+    del btrainer
+
+    log("[18] main path: block-choice Scheduler at full width, prefix hits")
+    bsched_server = Server(slice_config(**BLOCK_MOSA), batch=8,
+                           max_len=SCHED_MAX_LEN,
+                           paged=PagedConfig(block_size=SCHED_BS,
+                                             num_blocks=SCHED_BLOCKS), seed=0)
+    block["sched"] = block_sched_slice(torch, bsched_server)
+
+    log("[19] card vs CPU for the block-choice Scheduler at full width")
+    block["sched"]["cross_check"] = sched_cross_check(torch, bsched_server)
+    del bsched_server
+
     sources = {
         "mosa_attention": ("src/repro_torch/csrc/mosa_attention.cu",
                            "src/repro/kernels/mosa_attention.py:55"),
@@ -1273,12 +1640,26 @@ def main():
                                    "src/repro/serve/paged_attention.py:87"),
         "paged_prefill_attention": ("src/repro_torch/csrc/paged_prefill.cu",
                                     "src/repro/serve/paged_attention.py:260"),
+        "mosa_block_attention": ("src/repro_torch/csrc/mosa_attention.cu",
+                                 "src/repro/kernels/mosa_block.py:67"),
+        "mosa_block_attention_fwd_res": (
+            "src/repro_torch/csrc/mosa_attention.cu",
+            "src/repro/kernels/mosa_block.py:128"),
+        "mosa_block_attention_bwd_dq": (
+            "src/repro_torch/csrc/mosa_backward.cu",
+            "src/repro/kernels/mosa_block.py:182"),
+        "mosa_block_attention_bwd_dkv": (
+            "src/repro_torch/csrc/mosa_backward.cu",
+            "src/repro/kernels/mosa_block.py:227"),
     }
     # launches: serving's kernels from [5], training's from [8], packed
-    # prefill's from [11]
+    # prefill's from [11], block choice's from [14] and [16]
     launches = {name: (res["launches"][name]
                        or train["launches_total"][name]
-                       or sched["launches"][name]) for name in sources}
+                       or sched["launches"][name]
+                       or block["serve"]["launches"][name]
+                       or block["train"]["launches_total"][name])
+                for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],
@@ -1293,6 +1674,7 @@ def main():
                             "decode_step")}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"sched": sched}))
+    print(json.dumps({"block": block}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,11 @@
 (port of ``repro.core.hybrid`` for ``variant="mosa"``).
 
 Each side carries its own output projection and the two outputs are added
-(eq. 2/3 of the paper).  The fixed / routing baselines, the gated
-block-choice combine and window dense heads are not ported yet.
+(eq. 2/3 of the paper).  The sparse side selects tokens or, with
+``selection_granularity="block"``, KV blocks (its serving cache is then
+``MoSABlockKVCache``).  The fixed / routing baselines and window dense
+heads are not ported yet, nor is the gated combine, which the JAX package
+uses only for block choice beside window dense heads.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from torch import nn
 
 from repro_torch.configs.base import AttentionConfig, MoSAConfig
 from repro_torch.core.attention import MultiHeadAttention
-from repro_torch.core.kv_cache import DenseKVCache, MoSAKVCache
+from repro_torch.core.kv_cache import (DenseKVCache, MoSABlockKVCache,
+                                      MoSAKVCache)
 from repro_torch.core.mosa import MoSAAttention
 from repro_torch.serve.paged_kv import PagedConfig, PagedDenseKVCache
 
@@ -66,11 +70,18 @@ class HybridAttention(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    paged: PagedConfig | None = None, device=None):
         """``paged``: the dense side then uses a block-paged pool.  The MoSA
-        cache stays unpaged: it is already O(k) per head."""
+        cache stays unpaged: it is already O(k) per head (block choice:
+        ``ceil(k / bs)`` candidate blocks and the current one)."""
         c = self.cfg
-        k = self._sparse_k(max_len)
-        caches = {"sparse": MoSAKVCache.create(
-            batch, c.n_mosa_heads, min(k, max_len), c.d_head, dtype, device)}
+        k = min(self._sparse_k(max_len), max_len)
+        if c.selection_granularity == "block":
+            bs = c.sel_block_size
+            caches = {"sparse": MoSABlockKVCache.create(
+                batch, c.n_mosa_heads, -(-k // bs), bs, c.d_head, dtype,
+                device)}
+        else:
+            caches = {"sparse": MoSAKVCache.create(
+                batch, c.n_mosa_heads, k, c.d_head, dtype, device)}
         if c.n_dense_heads > 0:
             if paged is not None:
                 caches["dense"] = PagedDenseKVCache.create(

@@ -5,6 +5,9 @@
     KV memory per head is O(k), independent of context length.  Empty-slot
     sentinels: ``scores == -inf`` and ``idx == -1``; ``idx`` stays sorted
     ascending with empty slots last.
+  * ``MoSABlockKVCache`` — the block-choice form: each MoSA head keeps its
+    running top ``CB`` KV blocks of ``sel_block_size`` tokens plus the
+    block being streamed.
 
 The dense/paged appends write into the existing tensors IN PLACE (the JAX
 package returns fresh arrays): a serving cache has one owner, and copying
@@ -91,3 +94,63 @@ class MoSAKVCache(NamedTuple):
             torch.full((batch, n_heads, k), -1, dtype=torch.long,
                        device=device),
             torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+class MoSABlockKVCache(NamedTuple):
+    """Streaming block-choice cache: per (batch, head) ``CB`` candidate KV
+    blocks of ``bs`` tokens and one slot for the current, partial block.
+
+      * ``k``/``v``  — (B, H, (CB+1)*bs, d) token rows, block-major: rows
+        ``[s*bs, (s+1)*bs)`` belong to slot ``s``; slot ``CB`` (the last) is
+        the current block;
+      * ``pos``      — (B, H, (CB+1)*bs) original position per row, -1 for
+        an empty row (attention masks to ``pos >= 0``);
+      * ``bscore``   — (B, H, CB+1) fp32 mean router score per block, -inf
+        for an empty slot (slot ``CB``'s entry stays -inf);
+      * ``bidx``     — (B, H, CB+1) block index, -1 = empty; candidates
+        sorted ascending with empty slots last, slot ``CB`` the current
+        block's index (-1 before its first token);
+      * ``bsum``     — (B, H) fp32 running sum of the current block's scores;
+      * ``length``   — (B,) tokens seen.
+
+    Only completed blocks, whose mean score is final, enter the candidates,
+    so a snapshot at a block boundary is a function of the prefix alone
+    (what a prefix-cache hit restores).  Eviction is
+    ``streaming_topk_update`` over ``bscore``, as for ``MoSAKVCache``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    bscore: torch.Tensor
+    bidx: torch.Tensor
+    bsum: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def create(cls, batch, n_heads, cb, block_size, d_head,
+               dtype=torch.bfloat16, device=None):
+        rows = (cb + 1) * block_size
+        kw = dict(device=device)
+        return cls(
+            torch.zeros((batch, n_heads, rows, d_head), dtype=dtype, **kw),
+            torch.zeros((batch, n_heads, rows, d_head), dtype=dtype, **kw),
+            torch.full((batch, n_heads, rows), -1, dtype=torch.long, **kw),
+            torch.full((batch, n_heads, cb + 1), float("-inf"),
+                       dtype=torch.float32, **kw),
+            torch.full((batch, n_heads, cb + 1), -1, dtype=torch.long, **kw),
+            torch.zeros((batch, n_heads), dtype=torch.float32, **kw),
+            torch.zeros((batch,), dtype=torch.int32, **kw))
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2] // self.bidx.shape[2]
+
+    @property
+    def n_cand(self) -> int:
+        """CB: the candidate block slots, without the current one."""
+        return self.bidx.shape[2] - 1
+
+    @property
+    def kv_entries(self) -> int:
+        """H * (CB+1) * bs: the paper's KV metric for this cache."""
+        return self.k.shape[1] * self.k.shape[2]

@@ -5,6 +5,10 @@ sigmoid ``r = sigmoid(X W^r)`` in fp32, and each head selects its top-k
 tokens (expert choice: exactly k per head).  ``streaming_topk_update`` is
 the serving-time evict-min policy behind ``MoSAKVCache``;
 ``router_health_stats`` is the train loop's telemetry of one selection.
+Block choice pools the token scores per block of ``sel_block_size``
+tokens (``block_pool_scores``), selects blocks with the same
+``select_topk`` and expands the selected blocks back to token positions
+(``expand_block_index``).
 
 Indices are ``torch.long`` on the Python side (they index tensors);
 kernels take them as int32.
@@ -85,6 +89,30 @@ def selection_mask(idx_q, idx_k):
     """Causal mask from original indices: allow iff I_q >= I_k.
     idx_q: (..., kq), idx_k: (..., kk) -> bool (..., kq, kk)."""
     return idx_q[..., :, None] >= idx_k[..., None, :]
+
+
+def block_pool_scores(scores, block_size: int):
+    """(B, H, T) token scores -> (B, H, ceil(T / block_size)) block scores:
+    the mean of each block's in-range tokens (the last block may be short).
+    At ``block_size=1`` this returns the scores bit for bit."""
+    T = scores.shape[-1]
+    bs = block_size
+    nb = -(-T // bs)
+    s = nn.functional.pad(scores, (0, nb * bs - T))
+    in_range = (torch.arange(nb * bs, device=scores.device) < T).view(nb, bs)
+    ssum = torch.where(in_range, s.unflatten(-1, (nb, bs)), 0.0).sum(-1)
+    return ssum / in_range.sum(-1).to(scores.dtype)
+
+
+def expand_block_index(bidx, block_size: int, T: int):
+    """(..., NB) block indices (-1 = empty) -> (..., NB * block_size) token
+    positions ``bidx * bs + offset``, and -1 for every token of an empty
+    block or past ``T`` (the ragged tail of the last block)."""
+    bs = block_size
+    off = torch.arange(bs, device=bidx.device, dtype=bidx.dtype)
+    pos = bidx[..., None] * bs + off
+    pos = torch.where((bidx[..., None] >= 0) & (pos < T), pos, -1)
+    return pos.flatten(-2)
 
 
 def streaming_topk_update(cache_scores, cache_idx, new_score, new_pos,

@@ -65,6 +65,41 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Original position of selected row j of the (batch, head) row `row` (of
+// S selected rows), and whether it is a valid key.  Token choice
+// (kBlock = false): `idx` is (BH, S), pos = idx[row][j], valid iff >= 0.
+// Block choice: `idx` is the block table (BH, S / bs), and the block is
+// expanded here, per element: pos = idx[row][j / bs] * bs + j % bs, valid
+// iff the block is not empty (>= 0) and pos < seq_len (the last block may
+// run past the sequence).  At bs = 1 both give the same pos and validity.
+template <bool kBlock>
+__device__ __forceinline__ int sel_pos(const int* __restrict__ idx,
+                                       size_t row, int S, int j, int bs,
+                                       int seq_len, bool& valid) {
+  if constexpr (kBlock) {
+    const int b = idx[row * (S / bs) + j / bs];
+    const int p = b * bs + j % bs;
+    valid = b >= 0 && p < seq_len;
+    return p;
+  } else {
+    const int p = idx[row * S + j];
+    valid = p >= 0;
+    return p;
+  }
+}
+
+// Router score of selected row j: r[row][j], or the block's score
+// r[row][j / bs] in block choice.
+template <bool kBlock>
+__device__ __forceinline__ float sel_score(const float* __restrict__ r,
+                                           size_t row, int S, int j, int bs) {
+  if constexpr (kBlock) {
+    return r[row * (S / bs) + j / bs];
+  } else {
+    return r[row * S + j];
+  }
+}
+
 // Raise the dynamic shared-memory limit of `kernel` when it needs more
 // than the default 48 KB.
 template <typename K>

@@ -39,6 +39,22 @@
 // j scores key j (the key tile is stored with a padded row stride, so the
 // 32 lanes hit 32 banks), the warp reduces max and sum with shuffles, and
 // each lane accumulates the output columns it owns.
+//
+// Block choice (`kBlock`) is the same template with one index and one
+// router score per selected KV block of `bs` tokens.  It replaces the TPU
+// kernels of src/repro/kernels/mosa_block.py: `_mosa_block_kernel` (:67,
+// launched by `mosa_block_attention_pallas`, :297) and, with `kResiduals`,
+// `_mosa_block_fwd_res_kernel` (:128, launched by
+// `mosa_block_attention_fwd_res`, :334).  `idx` is then the block table
+// (BH, S / bs) and `r` the block scores (BH, S / bs); each staged row
+// expands its own position, pos = idx[j / bs] * bs + j % bs (per element:
+// bs may exceed the 32-key tile), valid iff the block is not empty and
+// pos < seq_len.  The mask becomes seg_q == seg_k && pos_q >= pos_k &&
+// valid_k, the output row is scaled by its block's score, and an invalid
+// query row (an empty block, or the ragged tail past seq_len) is written
+// as zeros, in `o` and in `o_pre`.  The index traffic is S / bs integers
+// per row instead of S.  At bs = 1 every staged value and every float
+// operation is the token kernel's, so the two agree bit for bit.
 
 #include <stdint.h>
 
@@ -61,14 +77,14 @@ size_t smem_bytes(int rows, int d) {
          + sizeof(int) * (2 * kBlockK + 2 * rows);           // idx, seg
 }
 
-template <typename T, bool kResiduals>
+template <typename T, bool kResiduals, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ idx,
                       const int* __restrict__ seg, const float* __restrict__ r,
                       T* __restrict__ o, float* __restrict__ o_pre,
                       float* __restrict__ lse, int S, int d, int rows,
-                      float scale) {
+                      float scale, int bs, int seq_len) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row stride of the key tile
   float* qs = smem;                     // [rows][d], pre-scaled
@@ -83,7 +99,8 @@ mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* idx_q = seg_k + kBlockK;         // [rows]
   int* seg_q = idx_q + rows;            // [rows]
 
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * S;  // (b, h) row
+  const size_t row = blockIdx.x;        // (b, h) row
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * S;
   const int q0 = blockIdx.y * kBlockQ;
   const int nq = min(kBlockQ, S - q0);
   const int warp = threadIdx.x / 32;
@@ -97,7 +114,12 @@ mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < nq; i += kThreads) {
     m[i] = kNegInf;
     l[i] = 0.f;
-    idx_q[i] = idx[row0 + q0 + i];
+    if constexpr (kBlock) {
+      bool valid;
+      idx_q[i] = sel_pos<kBlock>(idx, row, S, q0 + i, bs, seq_len, valid);
+    } else {
+      idx_q[i] = idx[row0 + q0 + i];
+    }
     seg_q[i] = seg ? seg[row0 + q0 + i] : 0;
   }
 
@@ -112,7 +134,14 @@ mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       vs[i] = to_float(vb[i]);
     }
     if (threadIdx.x < nk) {
-      idx_k[threadIdx.x] = idx[row0 + k0 + threadIdx.x];
+      if constexpr (kBlock) {
+        bool valid;
+        const int p = sel_pos<kBlock>(idx, row, S, k0 + threadIdx.x, bs,
+                                      seq_len, valid);
+        idx_k[threadIdx.x] = valid ? p : -1;
+      } else {
+        idx_k[threadIdx.x] = idx[row0 + k0 + threadIdx.x];
+      }
       seg_k[threadIdx.x] = seg ? seg[row0 + k0 + threadIdx.x] : 0;
     }
     __syncthreads();
@@ -152,38 +181,77 @@ mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  // Block choice zeroes invalid query rows; their validity and block
+  // score are read again here, off the hot loop.
   if constexpr (kResiduals) {
     float* ob = o_pre + (row0 + q0) * d;
-    for (int i = threadIdx.x; i < nq * d; i += kThreads)
-      ob[i] = acc[i] / fmaxf(l[i / d], 1e-30f);
+    if constexpr (kBlock) {
+      for (int i = threadIdx.x; i < nq * d; i += kThreads) {
+        bool valid;
+        sel_pos<kBlock>(idx, row, S, q0 + i / d, bs, seq_len, valid);
+        ob[i] = valid ? acc[i] / fmaxf(l[i / d], 1e-30f) : 0.f;
+      }
+    } else {
+      for (int i = threadIdx.x; i < nq * d; i += kThreads)
+        ob[i] = acc[i] / fmaxf(l[i / d], 1e-30f);
+    }
     for (int i = threadIdx.x; i < nq; i += kThreads)
       lse[row0 + q0 + i] = m[i] + logf(fmaxf(l[i], 1e-30f));
   } else {
     T* ob = o + (row0 + q0) * d;
     for (int i = threadIdx.x; i < nq * d; i += kThreads) {
       const int qi = i / d;
-      const float out = acc[i] / fmaxf(l[qi], 1e-30f) * r[row0 + q0 + qi];
-      store_as(ob + i, out);
+      if constexpr (kBlock) {
+        bool valid;
+        sel_pos<kBlock>(idx, row, S, q0 + qi, bs, seq_len, valid);
+        const float out = acc[i] / fmaxf(l[qi], 1e-30f) *
+                          sel_score<kBlock>(r, row, S, q0 + qi, bs);
+        store_as(ob + i, valid ? out : 0.f);
+      } else {
+        const float out = acc[i] / fmaxf(l[qi], 1e-30f) * r[row0 + q0 + qi];
+        store_as(ob + i, out);
+      }
     }
   }
 }
 
-template <typename T, bool kResiduals>
+template <typename T, bool kResiduals, bool kBlock>
 int launch(const void* q, const void* k, const void* v, const void* idx,
            const void* seg, const void* r, void* o, void* o_pre, void* lse,
-           int BH, int S, int d, float scale, cudaStream_t stream) {
+           int BH, int S, int d, float scale, int bs, int seq_len,
+           cudaStream_t stream) {
   const int rows = S < kBlockQ ? S : kBlockQ;
   const size_t smem = smem_bytes(rows, d);
-  cudaError_t err = allow_smem(mosa_attention_kernel<T, kResiduals>, smem);
+  cudaError_t err = allow_smem(mosa_attention_kernel<T, kResiduals, kBlock>,
+                               smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (S + kBlockQ - 1) / kBlockQ);
-  mosa_attention_kernel<T, kResiduals><<<grid, kThreads, smem, stream>>>(
+  mosa_attention_kernel<T, kResiduals, kBlock><<<grid, kThreads, smem,
+                                                 stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(r),
       static_cast<T*>(o), static_cast<float*>(o_pre),
-      static_cast<float*>(lse), S, d, rows, scale);
+      static_cast<float*>(lse), S, d, rows, scale, bs, seq_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch for `dtype` (see common.cuh), or cudaErrorInvalidValue.
+template <bool kResiduals, bool kBlock>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 const void* idx, const void* seg, const void* r, void* o,
+                 void* o_pre, void* lse, int BH, int S, int d, float scale,
+                 int bs, int seq_len, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch<float, kResiduals, kBlock>(q, k, v, idx, seg, r, o, o_pre,
+                                             lse, BH, S, d, scale, bs,
+                                             seq_len, st);
+  if (dtype == kBFloat16)
+    return launch<__nv_bfloat16, kResiduals, kBlock>(
+        q, k, v, idx, seg, r, o, o_pre, lse, BH, S, d, scale, bs, seq_len,
+        st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -195,14 +263,8 @@ extern "C" int repro_mosa_attention(const void* q, const void* k, const void* v,
                                     const void* r, void* o, int BH, int S,
                                     int d, float scale, int dtype,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return launch<float, false>(q, k, v, idx, seg, r, o, nullptr, nullptr, BH,
-                                S, d, scale, st);
-  if (dtype == repro::kBFloat16)
-    return launch<__nv_bfloat16, false>(q, k, v, idx, seg, r, o, nullptr,
-                                        nullptr, BH, S, d, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<false, false>(dtype, q, k, v, idx, seg, r, o, nullptr,
+                                    nullptr, BH, S, d, scale, 1, 0, stream);
 }
 
 // Training forward: q, k, v as above; o_pre: (BH, S, d) float32 and lse:
@@ -214,12 +276,31 @@ extern "C" int repro_mosa_attention_fwd_res(const void* q, const void* k,
                                             void* lse, int BH, int S, int d,
                                             float scale, int dtype,
                                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return launch<float, true>(q, k, v, idx, seg, nullptr, nullptr, o_pre,
-                               lse, BH, S, d, scale, st);
-  if (dtype == repro::kBFloat16)
-    return launch<__nv_bfloat16, true>(q, k, v, idx, seg, nullptr, nullptr,
-                                       o_pre, lse, BH, S, d, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<true, false>(dtype, q, k, v, idx, seg, nullptr, nullptr,
+                                   o_pre, lse, BH, S, d, scale, 1, 0, stream);
+}
+
+// Block choice (kernel #5): q, k, v, o: (BH, S, d) with S = NB * bs; bidx:
+// (BH, NB) int32 block indices (-1 = empty); seg: (BH, S) int32 or null;
+// rblk: (BH, NB) float32 block scores; T: the true sequence length.
+extern "C" int repro_mosa_block_attention(const void* q, const void* k,
+                                          const void* v, const void* bidx,
+                                          const void* seg, const void* rblk,
+                                          void* o, int BH, int S, int d,
+                                          int bs, int T, float scale,
+                                          int dtype, void* stream) {
+  return launch_dtype<false, true>(dtype, q, k, v, bidx, seg, rblk, o,
+                                   nullptr, nullptr, BH, S, d, scale, bs, T,
+                                   stream);
+}
+
+// Block-choice training forward (kernel #6): inputs as above without rblk;
+// writes o_pre (BH, S, d) and lse (BH, S), float32, o_pre zero on invalid
+// query rows.
+extern "C" int repro_mosa_block_attention_fwd_res(
+    const void* q, const void* k, const void* v, const void* bidx,
+    const void* seg, void* o_pre, void* lse, int BH, int S, int d, int bs,
+    int T, float scale, int dtype, void* stream) {
+  return launch_dtype<true, true>(dtype, q, k, v, bidx, seg, nullptr, nullptr,
+                                  o_pre, lse, BH, S, d, scale, bs, T, stream);
 }

@@ -36,6 +36,17 @@
 // padded row stride, so the 32 lanes hit 32 banks), the warp publishes its
 // 32 coefficients in shared memory, and each lane accumulates the output
 // columns it owns.
+//
+// Block choice (`kBlock`): the same two kernels replace
+// `_mosa_block_bwd_dq_kernel` (:182) and `_mosa_block_bwd_dkv_kernel` (:227)
+// of src/repro/kernels/mosa_block.py, launched by
+// `mosa_block_attention_bwd_pallas` (:371).  `idx` is the block table
+// (BH, S / bs) and every staged row expands its own position in the
+// kernel (sel_pos in common.cuh): keys are valid iff their block is not
+// empty and pos < seq_len, queries keep their raw position.  Invalid query
+// rows arrive with g~ = 0 and delta = 0 (the wrapper zeroes them), so their
+// dS and their share of dV vanish term by term.  At bs = 1 both kernels
+// compute what the token kernels do, bit for bit.
 
 #include <stdint.h>
 
@@ -64,14 +75,14 @@ size_t dq_smem_bytes(int rows, int d) {
          + sizeof(int) * (2 * kBlockStream + 2 * rows);      // idx, seg
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ idx,
                    const int* __restrict__ seg, const float* __restrict__ gt,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq, int S,
-                   int d, int rows, float scale) {
+                   int d, int rows, float scale, int bs, int seq_len) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* qs = smem;                     // [rows][d], pre-scaled
@@ -87,7 +98,8 @@ mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* idx_q = seg_k + kBlockStream;    // [rows]
   int* seg_q = idx_q + rows;
 
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * S;
+  const size_t row = blockIdx.x;
+  const size_t row0 = row * S;
   const int q0 = blockIdx.y * kBlockRows;
   const int nq = min(kBlockRows, S - q0);
   const int warp = threadIdx.x / 32;
@@ -101,9 +113,10 @@ mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[i] = 0.f;
   }
   for (int i = threadIdx.x; i < nq; i += kThreads) {
+    bool valid;
     lse_q[i] = lse[row0 + q0 + i];
     delta_q[i] = delta[row0 + q0 + i];
-    idx_q[i] = idx[row0 + q0 + i];
+    idx_q[i] = sel_pos<kBlock>(idx, row, S, q0 + i, bs, seq_len, valid);
     seg_q[i] = seg ? seg[row0 + q0 + i] : 0;
   }
 
@@ -119,7 +132,10 @@ mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       vs[j * dp + c] = to_float(vb[i]);
     }
     if (threadIdx.x < nk) {
-      idx_k[threadIdx.x] = idx[row0 + k0 + threadIdx.x];
+      bool valid;
+      const int p = sel_pos<kBlock>(idx, row, S, k0 + threadIdx.x, bs,
+                                    seq_len, valid);
+      idx_k[threadIdx.x] = (!kBlock || valid) ? p : -1;
       seg_k[threadIdx.x] = seg ? seg[row0 + k0 + threadIdx.x] : 0;
     }
     __syncthreads();
@@ -170,14 +186,15 @@ size_t dkv_smem_bytes(int rows, int d) {
          + sizeof(int) * (2 * kBlockStream + 2 * rows);      // idx, seg
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ idx,
                     const int* __restrict__ seg, const float* __restrict__ gt,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int S, int d, int rows, float scale) {
+                    T* __restrict__ dv, int S, int d, int rows, float scale,
+                    int bs, int seq_len) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* ks = smem;                     // [rows][d]
@@ -195,7 +212,8 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* idx_k = seg_q + kBlockStream;    // [rows]
   int* seg_k = idx_k + rows;
 
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * S;
+  const size_t row = blockIdx.x;
+  const size_t row0 = row * S;
   const int k0 = blockIdx.y * kBlockRows;
   const int nk = min(kBlockRows, S - k0);
   const int warp = threadIdx.x / 32;
@@ -210,7 +228,9 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dvs[i] = 0.f;
   }
   for (int i = threadIdx.x; i < nk; i += kThreads) {
-    idx_k[i] = idx[row0 + k0 + i];
+    bool valid;
+    const int p = sel_pos<kBlock>(idx, row, S, k0 + i, bs, seq_len, valid);
+    idx_k[i] = (!kBlock || valid) ? p : -1;
     seg_k[i] = seg ? seg[row0 + k0 + i] : 0;
   }
 
@@ -227,9 +247,11 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (threadIdx.x < nq) {
       const size_t o = row0 + qt + threadIdx.x;
+      bool valid;
       lse_q[threadIdx.x] = lse[o];
       delta_q[threadIdx.x] = delta[o];
-      idx_q[threadIdx.x] = idx[o];
+      idx_q[threadIdx.x] = sel_pos<kBlock>(idx, row, S, qt + threadIdx.x, bs,
+                                           seq_len, valid);
       seg_q[threadIdx.x] = seg ? seg[o] : 0;
     }
     __syncthreads();
@@ -280,42 +302,77 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 int launch_dq(const void* q, const void* k, const void* v, const void* idx,
               const void* seg, const void* gt, const void* lse,
               const void* delta, void* dq, int BH, int S, int d, float scale,
-              cudaStream_t stream) {
+              int bs, int seq_len, cudaStream_t stream) {
   const int rows = S < kBlockRows ? S : kBlockRows;
   const size_t smem = dq_smem_bytes(rows, d);
-  cudaError_t err = allow_smem(mosa_bwd_dq_kernel<T>, smem);
+  auto* kernel = mosa_bwd_dq_kernel<T, kBlock>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (S + kBlockRows - 1) / kBlockRows);
-  mosa_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(gt),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, d, rows, scale);
+      static_cast<T*>(dq), S, d, rows, scale, bs, seq_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 int launch_dkv(const void* q, const void* k, const void* v, const void* idx,
                const void* seg, const void* gt, const void* lse,
                const void* delta, void* dk, void* dv, int BH, int S, int d,
-               float scale, cudaStream_t stream) {
+               float scale, int bs, int seq_len, cudaStream_t stream) {
   const int rows = S < kBlockRows ? S : kBlockRows;
   const size_t smem = dkv_smem_bytes(rows, d);
-  cudaError_t err = allow_smem(mosa_bwd_dkv_kernel<T>, smem);
+  auto* kernel = mosa_bwd_dkv_kernel<T, kBlock>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (S + kBlockRows - 1) / kBlockRows);
-  mosa_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(gt),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, d, rows, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), S, d, rows, scale, bs,
+      seq_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBlock>
+int dq_dtype(int dtype, const void* q, const void* k, const void* v,
+             const void* idx, const void* seg, const void* gt,
+             const void* lse, const void* delta, void* dq, int BH, int S,
+             int d, float scale, int bs, int seq_len, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch_dq<float, kBlock>(q, k, v, idx, seg, gt, lse, delta, dq, BH,
+                                    S, d, scale, bs, seq_len, st);
+  if (dtype == kBFloat16)
+    return launch_dq<__nv_bfloat16, kBlock>(q, k, v, idx, seg, gt, lse, delta,
+                                            dq, BH, S, d, scale, bs, seq_len,
+                                            st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kBlock>
+int dkv_dtype(int dtype, const void* q, const void* k, const void* v,
+              const void* idx, const void* seg, const void* gt,
+              const void* lse, const void* delta, void* dk, void* dv, int BH,
+              int S, int d, float scale, int bs, int seq_len, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch_dkv<float, kBlock>(q, k, v, idx, seg, gt, lse, delta, dk,
+                                     dv, BH, S, d, scale, bs, seq_len, st);
+  if (dtype == kBFloat16)
+    return launch_dkv<__nv_bfloat16, kBlock>(q, k, v, idx, seg, gt, lse,
+                                             delta, dk, dv, BH, S, d, scale,
+                                             bs, seq_len, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -331,14 +388,8 @@ extern "C" int repro_mosa_attention_bwd_dq(const void* q, const void* k,
                                            void* dq, int BH, int S, int d,
                                            float scale, int dtype,
                                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return launch_dq<float>(q, k, v, idx, seg, gt, lse, delta, dq, BH, S, d,
-                            scale, st);
-  if (dtype == repro::kBFloat16)
-    return launch_dq<__nv_bfloat16>(q, k, v, idx, seg, gt, lse, delta, dq, BH,
-                                    S, d, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dq_dtype<false>(dtype, q, k, v, idx, seg, gt, lse, delta, dq, BH, S,
+                         d, scale, 1, 0, stream);
 }
 
 extern "C" int repro_mosa_attention_bwd_dkv(const void* q, const void* k,
@@ -349,12 +400,27 @@ extern "C" int repro_mosa_attention_bwd_dkv(const void* q, const void* k,
                                             void* dv, int BH, int S, int d,
                                             float scale, int dtype,
                                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return launch_dkv<float>(q, k, v, idx, seg, gt, lse, delta, dk, dv, BH, S,
-                             d, scale, st);
-  if (dtype == repro::kBFloat16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, idx, seg, gt, lse, delta, dk,
-                                     dv, BH, S, d, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dkv_dtype<false>(dtype, q, k, v, idx, seg, gt, lse, delta, dk, dv,
+                          BH, S, d, scale, 1, 0, stream);
+}
+
+// Block choice (kernels #7 and #8): as above with S = NB * bs, bidx (BH,
+// NB) int32 block indices in place of idx, and T the true sequence length;
+// gt and delta are zero on invalid query rows.
+extern "C" int repro_mosa_block_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* bidx,
+    const void* seg, const void* gt, const void* lse, const void* delta,
+    void* dq, int BH, int S, int d, int bs, int T, float scale, int dtype,
+    void* stream) {
+  return dq_dtype<true>(dtype, q, k, v, bidx, seg, gt, lse, delta, dq, BH, S,
+                        d, scale, bs, T, stream);
+}
+
+extern "C" int repro_mosa_block_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* bidx,
+    const void* seg, const void* gt, const void* lse, const void* delta,
+    void* dk, void* dv, int BH, int S, int d, int bs, int T, float scale,
+    int dtype, void* stream) {
+  return dkv_dtype<true>(dtype, q, k, v, bidx, seg, gt, lse, delta, dk, dv,
+                         BH, S, d, scale, bs, T, stream);
 }

@@ -44,6 +44,10 @@ SIGNATURES = {
     "repro_mosa_attention_fwd_res": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dkv": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_block_attention": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "repro_mosa_block_attention_fwd_res": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "repro_mosa_block_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    "repro_mosa_block_attention_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "repro_paged_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }
@@ -162,5 +166,5 @@ def check_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad:
         raise ValueError(f"{name} requires grad; a kernel takes no autograd "
-                         "inputs (differentiable calls go through "
-                         "repro_torch.kernels.mosa_vjp)")
+                         "inputs (differentiable calls go through the "
+                         "autograd Functions of mosa_vjp and mosa_block)")

@@ -38,18 +38,25 @@ def wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _masked_softmax_parts(q, k, idx, scale, seg):
-    """Masked scores of the plain versions: (mask, s, m, p, denom), in
-    ``wide`` precision."""
-    s = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k)) * scale
-    mask = (idx[..., :, None] >= idx[..., None, :]) & (idx >= 0)[..., None, :]
+def pair_mask(pos_q, pos_k, ok_k, seg):
+    """(B, H, S, S) mask of the MoSA kernels: pos_q >= pos_k & ok_k (&
+    seg_q == seg_k)."""
+    mask = (pos_q[..., :, None] >= pos_k[..., None, :]) & ok_k[..., None, :]
     if seg is not None:
         mask &= seg[..., :, None] == seg[..., None, :]
+    return mask
+
+
+def softmax_parts(q, k, mask, scale):
+    """Masked softmax parts of the plain versions: the row max ``m``, the
+    unnormalized probabilities ``p`` and the floored denominator, in
+    ``wide`` precision."""
+    s = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k)) * scale
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return mask, s, m, p, denom
+    return m, p, denom
 
 
 def mosa_attention_ref(q, k, v, idx, r, scale=None, seg=None):
@@ -58,7 +65,8 @@ def mosa_attention_ref(q, k, v, idx, r, scale=None, seg=None):
     (B, H, S) segment ids.  Returns softmax(q k^T masked) v * r_q in
     q.dtype; mask = idx_q >= idx_k & idx_k >= 0 (& seg_q == seg_k)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    _, _, _, p, denom = _masked_softmax_parts(q, k, idx, scale, seg)
+    _, p, denom = softmax_parts(q, k, pair_mask(idx, idx, idx >= 0, seg),
+                                scale)
     att = torch.einsum("bhqk,bhkd->bhqd", p / denom, wide(v))
     return (att * r[..., None]).to(q.dtype)
 
@@ -69,7 +77,8 @@ def mosa_attention_fwd_res_ref(q, k, v, idx, scale=None, seg=None):
     = softmax(q k^T masked) v, NOT scaled by r, and ``lse`` (B, H, S) fp32
     = m + log(max(l, 1e-30)) (about -1e30 for a row with no valid key)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    _, _, m, p, denom = _masked_softmax_parts(q, k, idx, scale, seg)
+    m, p, denom = softmax_parts(q, k, pair_mask(idx, idx, idx >= 0, seg),
+                                scale)
     o_pre = torch.einsum("bhqk,bhkd->bhqd", p / denom, wide(v))
     return o_pre, m[..., 0] + torch.log(denom[..., 0])
 

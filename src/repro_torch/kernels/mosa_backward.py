@@ -33,7 +33,7 @@ import torch
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
                                       check_launch, check_tensor, library)
 from repro_torch.kernels.mosa_attention import (check_mosa_inputs, data_ptr,
-                                                wide)
+                                                pair_mask, wide)
 
 LAUNCHES_DQ = LaunchCounter("mosa_attention_bwd_dq")
 LAUNCHES_DKV = LaunchCounter("mosa_attention_bwd_dkv")
@@ -43,11 +43,14 @@ def mosa_attention_bwd_ref(q, k, v, idx, gt, lse, delta, scale=None,
                            seg=None):
     """q, k, v: (B, H, S, d); idx, seg: (B, H, S) (seg optional); gt: (B, H,
     S, d) fp32 = r * g; lse, delta: (B, H, S) fp32."""
+    return bwd_from_mask(q, k, v, pair_mask(idx, idx, idx >= 0, seg), gt,
+                         lse, delta, scale)
+
+
+def bwd_from_mask(q, k, v, mask, gt, lse, delta, scale=None):
+    """The backward math under an explicit (B, H, S, S) pair mask."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     qf, kf, vf = wide(q), wide(k), wide(v)
-    mask = (idx[..., :, None] >= idx[..., None, :]) & (idx >= 0)[..., None, :]
-    if seg is not None:
-        mask &= seg[..., :, None] == seg[..., None, :]
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", gt, vf)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.kv_cache import MoSAKVCache
+from repro_torch.core.kv_cache import MoSABlockKVCache, MoSAKVCache
 from repro_torch.nn.transformer import TransformerLM, sample_logits
 from repro_torch.serve.paged_kv import PagedConfig, PagedDenseKVCache
 
@@ -53,10 +53,10 @@ def resolve_device(device=None) -> torch.device:
 
 # ---------------------------------------------------- batch-row cache ops
 # The caches are a list with one entry per layer: a ``PagedDenseKVCache``
-# (attention layers) or a dict {"sparse": MoSAKVCache, "dense":
-# PagedDenseKVCache} (MoSA hybrid layers).  The pools of a paged cache are
-# shared by every row and stay behind block ids; its block table and length
-# are per row.  A MoSA cache is per row in every field.
+# (attention layers) or a dict {"sparse": MoSAKVCache or MoSABlockKVCache,
+# "dense": PagedDenseKVCache} (MoSA hybrid layers).  The pools of a paged
+# cache are shared by every row and stay behind block ids; its block table
+# and length are per row.  A MoSA cache is per row in every field.
 
 def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
@@ -80,8 +80,8 @@ def row_snapshot(caches, b: int):
         if isinstance(c, PagedDenseKVCache):
             return {"block_table": _host(c.block_table[b]),
                     "length": _host(c.length[b])}
-        if isinstance(c, MoSAKVCache):
-            return MoSAKVCache(*(_host(f[b:b + 1]) for f in c))
+        if isinstance(c, (MoSAKVCache, MoSABlockKVCache)):
+            return type(c)(*(_host(f[b:b + 1]) for f in c))
         raise NotImplementedError(f"row ops of {type(c).__name__} are not "
                                   "ported")
     return _map_layers(one, caches)

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.kv_cache import MoSAKVCache
+from repro_torch.core.kv_cache import MoSABlockKVCache, MoSAKVCache
 from repro_torch.serve.paged_kv import BlockPool, PagedDenseKVCache
 from repro_torch.serve.prefix_cache import PrefixCache
 
@@ -147,18 +147,25 @@ def _selection_health(pos, wt, n_slots: int) -> dict:
 def _router_health_from_snapshot(snap, P: int) -> dict:
     """MoSA router health of one request from the host row snapshot its
     prefill just produced: each cache's kept tokens scored over the ``P``
-    prompt positions, averaged over the MoSA layers."""
+    prompt positions (block choice: its candidate blocks over the prompt's
+    blocks), averaged over the MoSA layers."""
     samples = []
     for x in _cache_leaves(snap):
         if isinstance(x, MoSAKVCache):
-            s = x.scores.double().numpy()
-            ix = x.idx.long().numpy()
-            s2 = s.reshape(-1, s.shape[-2] * s.shape[-1])
-            i2 = ix.reshape(-1, ix.shape[-2] * ix.shape[-1])
-            for row in range(s2.shape[0]):
-                valid = np.isfinite(s2[row]) & (i2[row] >= 0)
-                samples.append(_selection_health(i2[row][valid],
-                                                 s2[row][valid], P))
+            s, ix, n_slots = x.scores, x.idx, P
+        elif isinstance(x, MoSABlockKVCache):
+            s, ix = x.bscore[..., :-1], x.bidx[..., :-1]
+            n_slots = -(-int(P) // x.block_size)
+        else:
+            continue
+        s = s.double().numpy()
+        ix = ix.long().numpy()
+        s2 = s.reshape(-1, s.shape[-2] * s.shape[-1])
+        i2 = ix.reshape(-1, ix.shape[-2] * ix.shape[-1])
+        for row in range(s2.shape[0]):
+            valid = np.isfinite(s2[row]) & (i2[row] >= 0)
+            samples.append(_selection_health(i2[row][valid], s2[row][valid],
+                                             n_slots))
     if not samples:
         return {}
     return {k: float(np.mean([s[k] for s in samples]))
@@ -219,7 +226,8 @@ class Scheduler:
         self.caches = server.new_cache()
         leaves = _cache_leaves(self.caches)
         other = [type(x).__name__ for x in leaves
-                 if not isinstance(x, (PagedDenseKVCache, MoSAKVCache))]
+                 if not isinstance(x, (PagedDenseKVCache, MoSAKVCache,
+                                       MoSABlockKVCache))]
         if other:
             raise NotImplementedError(f"the Scheduler serves paged-dense and "
                                       f"MoSA caches only, not {other} "
@@ -249,7 +257,8 @@ class Scheduler:
         self.metrics_path = metrics_path
         self.trace_path = trace_path
         self.router_health_every = router_health_every
-        self._has_mosa = any(isinstance(x, MoSAKVCache) for x in leaves)
+        self._has_mosa = any(isinstance(x, (MoSAKVCache, MoSABlockKVCache))
+                             for x in leaves)
         self._health_seen = 0
 
         B = server.batch

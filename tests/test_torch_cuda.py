@@ -12,7 +12,10 @@ residuals, dq, dk/dv) and the autograd Function that joins them are held
 to the same tolerances at the slice's shape (8, 276, 32, 64) and at the
 edge cases: ragged S with idx = -1 keys, r = 0 rows and segments, and two
 query tiles with d = 80 and with d = 128 (the widest d the kernels take,
-and their largest shared-memory footprint).
+and their largest shared-memory footprint).  The block-choice kernels
+(#5-#8) and their autograd Function are held to the same tolerances at the
+slice's shape and at the edge cases of ``BLOCK_CASES``; at bs = 1, #5 and
+#6 equal #1 and #2 bit for bit.
 """
 
 import pytest
@@ -309,5 +312,186 @@ def test_scheduler_card_matches_cpu(dev):
     (rg, sg, lg), (rc, sc, lc) = out["gpu"], out["cpu"]
     assert sg == sc and sg["prefix_hits"] >= 1
     assert lg == cfg.n_layers * sg["prefill_chunks"] and lc == 0
+    for rid in rc:
+        assert torch.equal(rg[rid], rc[rid]), rid
+
+
+# Block choice (#5-#8): (B, H, NB, bs, d, T, empty, two_segs).  The
+# slice's shape (B*H = 2208, NB 2, bs 16, S 32, d 64); bs 4 with a ragged
+# last block (T % bs != 0) and empty blocks; two segments; d 32 and 128;
+# bs 64, wider than the kernels' 32-key tile.
+BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
+               (2, 3, 9, 4, 64, 101, 6, True),
+               (2, 3, 5, 8, 32, 77, 3, True),
+               (1, 2, 6, 4, 128, 50, 2, False),
+               (1, 2, 2, 64, 64, 150, 0, True)]
+
+
+def _block_inputs(dev, B, H, NB, bs, d, T, empty, two_segs, seed=6):
+    """Per (b, h) NB sorted distinct blocks of a length-T sequence, the
+    last (short) block in every row; ``empty`` random slots set to -1 and
+    sorted last, as the layer keeps them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nbt = -(-T // bs)
+    perm = torch.rand(B, H, nbt - 1, device=dev, generator=g).argsort(-1)
+    bidx = torch.cat([perm[..., :NB - 1],
+                      torch.full((B, H, 1), nbt - 1, device=dev)], -1)
+    bidx = bidx.sort(-1).values
+    if empty:
+        flat = bidx.view(-1)
+        flat[torch.randint(0, flat.numel(), (empty,), device=dev,
+                           generator=g)] = -1
+        bidx = torch.where(bidx < 0, 2 ** 31 - 1, bidx).sort(-1).values
+        bidx = torch.where(bidx == 2 ** 31 - 1, -1, bidx)
+    S = NB * bs
+    q, k, v = (torch.randn(B, H, S, d, device=dev, generator=g)
+               for _ in range(3))
+    rblk = torch.sigmoid(torch.randn(B, H, NB, device=dev, generator=g))
+    seg = None
+    if two_segs:
+        pos = (bidx[..., None] * bs + torch.arange(bs, device=dev)).flatten(-2)
+        seg = (pos.clamp(min=0) >= T // 2).to(torch.int32)
+    gout = torch.randn(B, H, S, d, device=dev, generator=g)
+    return q, k, v, bidx.to(torch.int32).contiguous(), rblk, seg, gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_block_kernels_match_plain(dev, dtype, case):
+    """#5 and #6 against their plain versions (invalid query rows exact
+    zeros), #7 and #8 on the same g~, lse and delta as theirs."""
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, bidx, rblk, seg, gout = _block_inputs(dev, *case)
+    bs, T = case[3], case[5]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    _, ok = kb.expand_blocks(bidx, bs, T)
+    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_DQ,
+                kb.LAUNCHES_DKV)
+    before = [c.count for c in counters]
+
+    got = kb.mosa_block_attention_cuda(q, k, v, bidx, rblk, bs, T, seg=seg)
+    want = kb.mosa_block_attention_ref(qf, kf, vf, bidx, rblk, bs, T,
+                                       seg=seg)
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert (got[~ok] == 0).all()
+
+    o_pre, lse = kb.mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs, T,
+                                                      seg=seg)
+    want_o, want_lse = kb.mosa_block_attention_fwd_res_ref(qf, kf, vf, bidx,
+                                                           bs, T, seg=seg)
+    torch.testing.assert_close(o_pre, want_o, **tol)
+    torch.testing.assert_close(lse, want_lse, **tol)
+    assert (o_pre[~ok] == 0).all()
+
+    gt = torch.where(ok[..., None], gout, 0.0).contiguous()
+    delta = (gt * want_o).sum(-1).contiguous()
+    dq = kb.mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, want_lse,
+                                             delta, bs, T, seg=seg)
+    dk, dv = kb.mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt,
+                                                  want_lse, delta, bs, T,
+                                                  seg=seg)
+    want_g = kb.mosa_block_attention_bwd_ref(qf, kf, vf, bidx, gt, want_lse,
+                                             delta, bs, T, seg=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want_g):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b, msg=name, **tol)
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BLOCK_CASES[:3])
+def test_block_autograd_function_matches_autograd_of_plain(dev, dtype, case):
+    """Grads of sum(out * g) for q, k, v and the block scores through
+    kernels #6-#8 against autograd of ``mosa_block_attention_ref`` (fp32)
+    on the same inputs (the plain version gets the bf16-rounded g)."""
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, bidx, rblk, seg, gout = _block_inputs(dev, *case)
+    bs, T = case[3], case[5]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, rblk)]
+    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_DQ,
+                kb.LAUNCHES_DKV)
+    before = [c.count for c in counters]
+    out = kb.mosa_block_attention(*leaves[:3], bidx, leaves[3], bs, T,
+                                  seg=seg)
+    got = torch.autograd.grad((out.float() * gout).sum(), leaves)
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v, rblk)]
+    want_out = kb.mosa_block_attention_ref(*ref[:3], bidx, ref[3], bs, T,
+                                           seg=seg)
+    want = torch.autograd.grad((want_out * gout.to(dtype).float()).sum(), ref)
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    torch.testing.assert_close(out.float(), want_out.detach(), **tol)
+    for name, a, b in zip(("dq", "dk", "dv", "dr_blk"), got, want):
+        torch.testing.assert_close(a.float(), b, msg=name, **tol)
+
+
+def test_block_kernels_at_bs1_equal_token_kernels(dev):
+    """At bs = 1 kernels #5 and #6 stage the same values and run the same
+    float operations as #1 and #2: bit for bit equal on the same inputs."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, idx, r, seg, _ = _train_inputs(dev, *TRAIN_CASES[1])
+    idx = torch.where(idx < 0, 2 ** 31 - 1, idx).sort(-1).values
+    idx = torch.where(idx == 2 ** 31 - 1, -1, idx).to(torch.int32)
+    T = 200
+    assert torch.equal(kb.mosa_block_attention_cuda(q, k, v, idx, r, 1, T,
+                                                    seg=seg),
+                       km.mosa_attention_cuda(q, k, v, idx, r, seg=seg))
+    blk = kb.mosa_block_attention_fwd_res_cuda(q, k, v, idx, 1, T, seg=seg)
+    tok = km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg)
+    assert all(torch.equal(a, b) for a, b in zip(blk, tok))
+
+
+def test_block_choice_serving_card_matches_cpu(dev):
+    """The smoke model with block choice (bs 16) served on the card (#5,
+    #11) and on the CPU, same weights: identical greedy tokens and block
+    selections, through ``Server.generate`` and through the Scheduler
+    (identical stats, a prefix hit)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import mosa_block as kb
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = get_config("mosa-paper", preset="smoke", variant="mosa",
+                     selection_granularity="block", sel_block_size=16)
+    cfg = dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
+                                                            impl="kernel"))
+    gpu = Server(cfg, batch=2, max_len=128, paged=PagedConfig(16), seed=4)
+    state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    cpu = Server(cfg, batch=2, max_len=128, paged=PagedConfig(16),
+                 params=state, device="cpu")
+    prompts = torch.randint(2, cfg.vocab, (2, 75),
+                            generator=torch.Generator().manual_seed(6))
+    before = kb.LAUNCHES.count
+    tg, cg = gpu.generate(prompts, 8)
+    assert kb.LAUNCHES.count - before == cfg.n_layers
+    tc, cc = cpu.generate(prompts, 8)
+    assert torch.equal(tg.cpu(), tc)
+    for a, b in zip(cg, cc):
+        assert torch.equal(a["sparse"].bidx.cpu(), b["sparse"].bidx)
+
+    paged = PagedConfig(block_size=16, num_blocks=20)
+    g = torch.Generator().manual_seed(7)
+    shared = torch.randint(2, cfg.vocab, (40,), generator=g)
+    reqs = [torch.randint(2, cfg.vocab, (70,), generator=g),
+            torch.cat([shared, torch.randint(2, cfg.vocab, (5,),
+                                             generator=g)]),
+            torch.cat([shared, torch.randint(2, cfg.vocab, (30,),
+                                             generator=g)])]
+    out = {}
+    for name, dv in (("gpu", None), ("cpu", "cpu")):
+        srv = Server(cfg, batch=2, max_len=128, paged=paged, params=state,
+                     device=dv)
+        sched = Scheduler(srv, chunk=4, chunk_tokens=64)
+        for i, p in enumerate(reqs):
+            sched.submit(p, max_new=6 + i)
+        out[name] = (sched.run(), dict(sched.stats))
+    (rg, sg), (rc, sc) = out["gpu"], out["cpu"]
+    assert sg == sc and sg["prefix_hits"] >= 1
     for rid in rc:
         assert torch.equal(rg[rid], rc[rid]), rid
