@@ -18,7 +18,9 @@ Phases (any failure raises, so the script exits nonzero):
      four block-choice kernels (#5-#8) and their autograd Function at the
      block slice's shape and at edge cases (a ragged last block, empty
      blocks, two segments, d 32 and 128, bs 64), plus #5/#6 at bs = 1
-     against #1/#2 (bitwise equality reported);
+     against #1/#2 (bitwise equality reported), and the flash kernels #9
+     and #10 (GQA, Tq < Tk through q_offset, windows, ragged tiles, d 36
+     and 128, segments of length 1, a padding tail that must be zeros);
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
@@ -75,15 +77,38 @@ Phases (any failure raises, so the script exits nonzero):
      tokens, 16 tokens each, with the prefix cache on and off — identical
      tokens, at least one hit; launches of packed prefill = 6 x chunks, of
      paged decode = 6 x decode steps, of #1-#8 = 0;
- 19. phase 13 for block choice.
+ 19. phase 13 for block choice;
+ 20. the window model (``mosa-paper-tiny-mosa32`` with ``local_window=256``:
+     4 sliding-window dense heads) served like phase 5 with the dense side
+     on the flash route (``dense_impl="kernel"``): over contiguous window
+     rings exactly 6 launches of #9 (``flash_attention``, the prefill's
+     full forward) and 6 of #1, 0 of paged decode; over paged rings
+     (``PagedConfig(16)``, 20b) 6 of #1 and 0 of #9 and paged decode (the
+     paged window prefill and the ring decode are plain PyTorch);
+ 21. the card against the CPU for 20 and 20b: batch 1, prompt 384 (the
+     ring wraps), 8 greedy tokens — identical tokens;
+ 22. block choice beside the window heads (the gated combine) served like
+     20: exactly 6 launches of #5 and 6 of #9, identical tokens and block
+     selections on the card and the CPU;
+ 23. forward-only evaluation: ``TransformerLM.loss`` under
+     ``torch.no_grad()`` at 8 x 1024 for the dense baseline
+     (``mosa-paper-tiny``, 6 layers x 9 heads) and the window model, every
+     dense attention on the flash route — exactly 6 launches of #9 each,
+     then, under deterministic algorithms, identical MoSA selections and
+     the loss within 1e-5 relative of the chunked route's on the same
+     weights; 23c: #10 through ``flash_attention_varlen`` on a packed
+     stream of eight prompts — exactly one launch, each segment equal to
+     #9 on that segment alone.
 
-The last seven lines are the ``serve`` JSON, the ``train`` JSON, the
-``sched`` JSON, the ``block`` JSON, the ``kernels`` JSON, the
-``nvidia-smi`` name and power limit, and the result JSON.
+Phases 3 and 4 hold and time #9 and #10 too.  The last eight lines are the
+``serve`` JSON, the ``train`` JSON, the ``sched`` JSON, the ``block``
+JSON, the ``window`` JSON, the ``kernels`` JSON, the ``nvidia-smi`` name
+and power limit, and the result JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -92,6 +117,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -546,6 +572,7 @@ def check_kernels(torch, dev):
             "paged_attention_decode", case, errs)
     check_prefill_kernel(torch, dev, gen, errs)
     check_block_kernels(torch, dev, gen, errs)
+    check_flash_kernels(torch, dev, gen, errs)
     return errs
 
 
@@ -606,6 +633,7 @@ def time_kernels(torch, dev):
     out["paged_prefill_attention"] = time_prefill_kernel(torch, dev, gen,
                                                          flush)
     out.update(time_block_kernels(torch, dev, gen, flush))
+    out.update(time_flash_kernels(torch, dev, gen, flush))
 
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -783,6 +811,7 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
 
 def kernel_counters():
     """Every kernel's launch counter, by kernel name."""
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import mosa_attention as kmosa
     from repro_torch.kernels import mosa_backward as kbwd
     from repro_torch.kernels import mosa_block as kblock
@@ -791,6 +820,7 @@ def kernel_counters():
                                 kbwd.LAUNCHES_DQ, kbwd.LAUNCHES_DKV,
                                 kblock.LAUNCHES, kblock.LAUNCHES_FWD_RES,
                                 kblock.LAUNCHES_DQ, kblock.LAUNCHES_DKV,
+                                kflash.LAUNCHES, kflash.LAUNCHES_VARLEN,
                                 kpaged.LAUNCHES, kpaged.LAUNCHES_PREFILL)}
 
 
@@ -949,16 +979,22 @@ def profile_summary(torch, prof, wall_ms, steps):
     return res
 
 
-def cross_check(torch, server, cfg, prompts):
-    """The card against the CPU: same weights, batch 1, prompt 256.  With
-    block choice every layer's selected blocks must be identical too."""
+def cross_check(torch, server, cfg, prompts, P=256, paged=True):
+    """The card against the CPU: same weights, batch 1, prompt ``P``, the
+    dense side on ``server``'s route, paged dense/window KV (or contiguous
+    caches with ``paged=False``).  With block choice every layer's
+    selected blocks must be identical too."""
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
-    P, G = 256, 8
+    G = 8
     state = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
-    kw = dict(batch=1, max_len=P + G, paged=PagedConfig(block_size=16))
+    kw = dict(batch=1, max_len=P + G,
+              paged=PagedConfig(block_size=16) if paged else None)
     gpu = Server(cfg, params=state, **kw)
     cpu = Server(cfg, params=state, device="cpu", **kw)
+    for srv in (gpu, cpu):
+        for dst, src in zip(srv.model.layers, server.model.layers):
+            dst.mixer.dense_impl = src.mixer.dense_impl
     p = prompts[:1, :P]
     with torch.inference_mode():
         lg, _ = gpu.model.prefill(p.cuda(), gpu.new_cache())
@@ -1529,6 +1565,387 @@ def block_sched_slice(torch, server):
     return {"prefix_cache_on": on, "prefix_cache_off": off}
 
 
+# ------------------------------------------------ the flash kernels (#9, #10)
+# #9 cases: (B, Hq, Hkv, Tq, Tk, d, window); the slice's first: the window
+# model's dense heads (4, d 64, W 256) over the batch of 1024-token prompts.
+FLASH_CHECK_CASES = {
+    "slice window (8,4,1024,64) W=256": (8, 4, 4, 1024, 1024, 64, 256),
+    "dense baseline (8,9,1024,64) causal": (8, 9, 9, 1024, 1024, 64, 0),
+    "GQA 8/2, T=300 (ragged tiles)": (2, 8, 2, 300, 300, 64, 0),
+    "Tq 1 < Tk 300 (q_offset), W=64, GQA 4/2": (1, 4, 2, 1, 300, 64, 64),
+    "Tq 77 < Tk 200, d=36, W=0": (2, 4, 2, 77, 200, 36, 0),
+    "d=128, W=128, T=256": (2, 2, 2, 256, 256, 128, 128),
+}
+# #10 cases: (segment lengths, total, Hq, Hkv, d, window); total past the
+# last segment is a padding tail (must come back as zeros)
+VARLEN_CHECK_CASES = {
+    "slice 8 prompts 128-1024, 4 heads d=64, W=256": ("slice", 256),
+    "segments of length 1, pad tail, GQA 4/2, d=16": (
+        [1, 1, 13, 1, 5, 1], 30, 4, 2, 16, 0),
+    "W=8, GQA 8/2, d=64, pad tail": ([40, 1, 70, 9], 128, 8, 2, 64, 8),
+    "W=0, one segment, d=128": ([200], 200, 2, 2, 128, 0),
+}
+
+
+def varlen_slice_lengths():
+    """Eight seeded prompt lengths in [128, 1024] (the packed #10 stream)."""
+    import numpy as np
+    return [int(x) for x in np.random.default_rng(3).integers(128, 1025, 8)]
+
+
+def varlen_inputs(torch, dev, gen, lens, total, Hq, Hkv, d):
+    q = torch.randn(total, Hq, d, device=dev, generator=gen)
+    k, v = (torch.randn(total, Hkv, d, device=dev, generator=gen)
+            for _ in range(2))
+    cu = torch.tensor([0] + [sum(lens[:i + 1]) for i in range(len(lens))],
+                      dtype=torch.int32, device=dev)
+    return q, k, v, cu
+
+
+def check_flash_kernels(torch, dev, gen, errs):
+    """#9 and #10 against their plain versions (fp32 and bf16); the varlen
+    padding tail must be exact zeros."""
+    from repro_torch.kernels import flash_attention as kf
+    for case, (B, Hq, Hkv, Tq, Tk, d, W) in FLASH_CHECK_CASES.items():
+        q = torch.randn(B, Hq, Tq, d, device=dev, generator=gen)
+        k, v = (torch.randn(B, Hkv, Tk, d, device=dev, generator=gen)
+                for _ in range(2))
+        check_case(
+            torch,
+            lambda dt: kf.flash_attention_cuda(q.to(dt), k.to(dt), v.to(dt),
+                                               window=W),
+            lambda dt: kf.flash_attention_ref(
+                *(x.to(dt).float() for x in (q, k, v)), window=W),
+            "flash_attention", case, errs)
+    for case, spec in VARLEN_CHECK_CASES.items():
+        if spec[0] == "slice":
+            lens = varlen_slice_lengths()
+            lens, total, Hq, Hkv, d, W = lens, sum(lens), 4, 4, 64, spec[1]
+        else:
+            lens, total, Hq, Hkv, d, W = spec
+        q, k, v, cu = varlen_inputs(torch, dev, gen, lens, total, Hq, Hkv, d)
+
+        def kernel(dt):
+            out = kf.flash_attention_varlen_cuda(q.to(dt), k.to(dt),
+                                                 v.to(dt), cu, window=W)
+            if (out[sum(lens):] != 0).any():
+                raise AssertionError(f"flash_attention_varlen ({case}): "
+                                     "padding tail not zero")
+            return out
+
+        check_case(
+            torch, kernel,
+            lambda dt: kf.flash_attention_varlen_ref(
+                *(x.to(dt).float() for x in (q, k, v)), cu, window=W),
+            "flash_attention_varlen", case, errs)
+
+
+def flash_pairs(q_pos, k_pos, window):
+    """Visible (query, key) pairs of the causal/windowed mask."""
+    ok = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    return ok
+
+
+def time_flash_kernels(torch, dev, gen, flush):
+    """#9 and #10 at the slice's shapes (fp32): #9 with the window at the
+    window model's (8, 4, 1024, 64), W 256, and causal at the dense
+    baseline's (8, 9, 1024, 64); #10 over one packed stream of the eight
+    seeded prompts (4 heads, d 64) at W 256 and W 0.  Bytes: q, k, v (and
+    cu_seqlens) read once, o written once; operations: 4*d per visible
+    (query, key) pair and query head, counted from this run's masks.  The
+    yardstick is SDPA with the boolean causal/window mask (#10: the
+    block-diagonal causal mask of the whole stream).  The first of each
+    pair is the kernel's row in the ``kernels`` line; the other is
+    reported beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    out = {}
+    for name, (B, H, T, d, W) in (
+            ("flash_attention", (8, 4, 1024, 64, 256)),
+            ("flash_attention[causal 8x9x1024]", (8, 9, 1024, 64, 0))):
+        q, k, v = (torch.randn(B, H, T, d, device=dev, generator=gen)
+                   for _ in range(3))
+        pos = torch.arange(T, device=dev)
+        mask = flash_pairs(pos, pos, W)
+        out[name] = dict(
+            ms=time_ms(torch, lambda: kf.flash_attention_cuda(q, k, v,
+                                                              window=W),
+                       flush=flush),
+            plain_ms=time_ms(torch, lambda: kf.flash_attention_ref(
+                q, k, v, window=W), flush=flush),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), flush=flush),
+            bytes=4 * B * H * T * d * 4, flops=4 * d * B * H * int(mask.sum()))
+    lens = varlen_slice_lengths()
+    total, H, d = sum(lens), 4, 64
+    q, k, v, cu = varlen_inputs(torch, dev, gen, lens, total, H, H, d)
+    seg, _ = kf.segments_from_cu_seqlens(cu, total)
+    qh, kh, vh = (x.transpose(0, 1)[None].contiguous() for x in (q, k, v))
+    pos = torch.arange(total, device=dev)
+    for name, W in (("flash_attention_varlen", 256),
+                    ("flash_attention_varlen[W 0]", 0)):
+        mask = flash_pairs(pos, pos, W) & (seg[:, None] == seg[None, :])
+        out[name] = dict(
+            ms=time_ms(torch, lambda: kf.flash_attention_varlen_cuda(
+                q, k, v, cu, window=W), flush=flush),
+            plain_ms=time_ms(torch, lambda: kf.flash_attention_varlen_ref(
+                q, k, v, cu, window=W), flush=flush),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), flush=flush),
+            bytes=4 * total * H * d * 4 + cu.numel() * 4,
+            flops=4 * d * H * int(mask.sum()))
+    log(f"  #10 stream: prompts {lens} ({total} tokens)")
+    return out
+
+
+# ------------------------------------------ window dense heads ([20]-[23])
+WINDOW = 256
+
+
+def window_serve(torch, cfg, paged, want):
+    """Batch serving of a window model at full width through
+    ``Server.generate`` (batch 8, prompt 1024, 128 greedy tokens, max_len
+    1152), dense side on the flash route; ``want``: the exact launches over
+    the counted generate.  One decode step is then profiled, as in [7].
+    Returns (server, prompts, result)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    B, P, G, max_len = 8, 1024, 128, 1152
+    server = Server(cfg, batch=B, max_len=max_len,
+                    paged=PagedConfig(block_size=16) if paged else None,
+                    seed=0)
+    for layer in server.model.layers:
+        layer.mixer.dense_impl = "kernel"
+    prompts = torch.randint(2, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+
+    def timed_generate(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, caches = server.generate(prompts, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, toks, caches
+
+    timed_generate(2)                                   # warm-up
+    prefill_s = min(timed_generate(1)[0] for _ in range(3))
+    decode_many = server.model.decode_many
+    span = {}
+
+    def timed_decode_many(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = decode_many(*args)
+        torch.cuda.synchronize()
+        span["decode_s"] = time.perf_counter() - t0
+        return res
+
+    server.model.decode_many = timed_decode_many
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    torch.cuda.reset_peak_memory_stats()
+    gen_s, toks, caches = timed_generate(G)
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del server.model.decode_many
+    if launches != want_launches(**want):
+        raise AssertionError(f"launch counts {launches} != "
+                             f"{want_launches(**want)}")
+    if toks.shape != (B, G) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"bad tokens {toks.shape}")
+    ring = "PagedWindowKVCache" if paged else "WindowKVCache"
+    for c in caches:
+        dc = c["dense"]
+        if type(dc).__name__ != ring:
+            raise AssertionError(f"dense cache is {type(dc).__name__}")
+        if not torch.isfinite(c["sparse"].k).all() or \
+                not torch.isfinite(dc.k).all():
+            raise AssertionError("non-finite cache contents")
+        if int(dc.length.min()) != P + G - 1 or \
+                int(dc.positions.max()) != P + G - 2 or \
+                int(dc.positions.min()) != P + G - 1 - WINDOW:
+            raise AssertionError("window ring does not hold the last "
+                                 f"{WINDOW} positions")
+    res = dict(prefill_ms=prefill_s * 1e3, generate_s=gen_s,
+               decode_s=span["decode_s"],
+               decode_tok_s=B * (G - 1) / span["decode_s"],
+               peak_gib=peak / 2 ** 30, launches=launches)
+    res["decode_step"] = profile_decode(torch, server, prompts)
+    log(f"  {cfg.name}, local_window {cfg.mosa.local_window}, "
+        f"{cfg.mosa.selection_granularity} choice, "
+        f"{'paged' if paged else 'contiguous'} rings: prefill "
+        f"{res['prefill_ms']:.2f} ms (best of 3); {G - 1} decode steps "
+        f"{span['decode_s']:.3f} s = {res['decode_tok_s']:.1f} tok/s; peak "
+        f"{res['peak_gib']:.3f} GiB; launches {launches}")
+    return server, prompts, res
+
+
+def window_slice(torch):
+    """[20]-[22]: the window model served over contiguous and paged rings,
+    card against CPU, and block choice beside the window heads (gated)."""
+    out = {}
+    cfg = slice_config(local_window=WINDOW)
+    log(f"[20] main path: window-model batch serving at full width "
+        f"({cfg.mosa.n_dense_heads} window heads, W {WINDOW})")
+    server, prompts, out["contiguous"] = window_serve(
+        torch, cfg, False, dict(flash_attention=cfg.n_layers,
+                                mosa_attention=cfg.n_layers))
+    log("[21] card vs CPU for window serving (contiguous rings), prompt 384")
+    out["contiguous"]["cross_check_err"] = cross_check(
+        torch, server, cfg, prompts, P=384, paged=False)
+    del server
+    log("[20b] main path: window-model serving over paged rings "
+        "(PagedConfig(16))")
+    server, prompts, out["paged"] = window_serve(
+        torch, cfg, True, dict(mosa_attention=cfg.n_layers))
+    log("[21b] card vs CPU for window serving (paged rings), prompt 384")
+    out["paged"]["cross_check_err"] = cross_check(torch, server, cfg,
+                                                  prompts, P=384, paged=True)
+    del server
+    bcfg = slice_config(local_window=WINDOW, **BLOCK_MOSA)
+    log("[22] main path: block choice beside the window heads (gated "
+        "combine), contiguous rings")
+    server, prompts, out["block"] = window_serve(
+        torch, bcfg, False, dict(flash_attention=bcfg.n_layers,
+                                 mosa_block_attention=bcfg.n_layers))
+    if not all(layer.mixer._gated() for layer in server.model.layers):
+        raise AssertionError("block choice beside window heads is not gated")
+    out["block"]["cross_check_err"] = cross_check(
+        torch, server, bcfg, prompts, P=384, paged=False)
+    del server
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """Deterministic algorithms for the block: ``index_add_``, which sums
+    the MoSA heads' outputs into the tokens, then adds in a fixed order
+    instead of by CUDA atomics.  Without it the last bits of the residual
+    stream change from run to run and, over ~13,000 top-k decisions per
+    loss, now and then flip a near-tied selection in a later layer, which
+    moves the loss by ~1e-5 whatever the dense route.  Ops without a
+    deterministic form (cuBLAS without a fixed workspace) only warn, and
+    those warnings are silenced."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def eval_loss(torch, cfg, label):
+    """[23]: ``TransformerLM.loss`` under ``torch.no_grad()`` at 8 x 1024
+    with every dense attention on the flash route (exactly one #9 launch
+    per layer), then the same weights on the chunked route: with MoSA
+    layers each layer's selections must be identical first (a near-tie
+    shows as a selection difference), then the two losses within 1e-5
+    relative.  Both run under ``deterministic_algorithms``."""
+    from repro_torch.core.attention import MultiHeadAttention
+    from repro_torch.nn.transformer import TransformerLM
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        model = TransformerLM(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+    model.eval()
+    toks = torch.randint(2, cfg.vocab, (8, 1025),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def set_route(impl):
+        for layer in model.layers:
+            if isinstance(layer.mixer, MultiHeadAttention):
+                layer.mixer.impl = impl
+            else:
+                layer.mixer.dense_impl = impl
+
+    def timed_loss():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, _ = model.loss(batch)
+        torch.cuda.synchronize()
+        return loss.item(), (time.perf_counter() - t0) * 1e3
+
+    res, sel = {}, {}
+    with deterministic_algorithms(torch):
+        for impl in ("kernel", "chunked"):
+            set_route(impl)
+            timed_loss()                               # warm-up
+            if impl == "kernel":
+                counters = kernel_counters()
+                for c in counters.values():
+                    c.count = 0
+            loss, ms = timed_loss()
+            if impl == "kernel":
+                launches = {name: c.count for name, c in counters.items()}
+                want = {"flash_attention": cfg.n_layers}
+                if cfg.mosa is not None:
+                    want["mosa_attention"] = cfg.n_layers
+                if launches != want_launches(**want):
+                    raise AssertionError(f"{label}: launch counts {launches} "
+                                         f"!= {want_launches(**want)}")
+                res["launches"] = launches
+            if cfg.mosa is not None:
+                sel[impl] = layer_selections(torch, model, batch["tokens"])
+            res[f"loss_{impl}"], res[f"ms_{impl}"] = loss, ms
+    if sel:
+        differ = [int((a != b).any(-1).sum())
+                  for a, b in zip(sel["kernel"], sel["chunked"])]
+        log(f"  {label}: heads whose selection differs between the routes, "
+            f"per layer: {differ}")
+        if any(differ):
+            raise AssertionError(f"{label}: selections differ between the "
+                                 f"flash and chunked routes: {differ}")
+    rel = abs(res["loss_kernel"] - res["loss_chunked"]) / abs(
+        res["loss_chunked"])
+    res["rel_diff"] = rel
+    log(f"  {label} ({cfg.name}): loss {res['loss_kernel']:.6f} (flash, "
+        f"{res['ms_kernel']:.1f} ms) vs {res['loss_chunked']:.6f} (chunked, "
+        f"{res['ms_chunked']:.1f} ms), rel diff {rel:.2e} (tol 1e-5); "
+        f"launches {res['launches']}")
+    if not (math.isfinite(res["loss_kernel"]) and rel <= 1e-5):
+        raise AssertionError(f"{label}: flash loss differs from chunked by "
+                             f"{rel:.2e}")
+    del model
+    return res
+
+
+def varlen_entry(torch):
+    """[23c] #10 through its entry point ``flash_attention_varlen``: the
+    packed stream of the eight seeded prompts (4 heads, d 64, W 256) under
+    ``torch.no_grad()`` — exactly one launch of #10 and none of another
+    kernel — then each segment held against #9 on that segment alone."""
+    from repro_torch.kernels import flash_attention as kf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lens = varlen_slice_lengths()
+    q, k, v, cu = varlen_inputs(torch, dev, gen, lens, sum(lens), 4, 4, 64)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    with torch.no_grad():
+        out = kf.flash_attention_varlen(q, k, v, cu, window=WINDOW)
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in counters.items()}
+    if launches != want_launches(flash_attention_varlen=1):
+        raise AssertionError(f"launch counts {launches}")
+    err = 0.0
+    for a, b in zip(cu[:-1].tolist(), cu[1:].tolist()):
+        one = kf.flash_attention(*(x[a:b].transpose(0, 1)[None]
+                                   for x in (q, k, v)), window=WINDOW)
+        err = max(err, max_err(torch, out[a:b], one[0].transpose(0, 1),
+                               FP32_TOL, FP32_TOL))
+    log(f"  packed stream of {len(lens)} prompts ({sum(lens)} tokens): "
+        f"launches {launches}; max|packed - per-prompt #9| {err:.3e}")
+    return dict(launches=launches, per_row_err=err)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -1627,6 +2044,20 @@ def main():
     block["sched"]["cross_check"] = sched_cross_check(torch, bsched_server)
     del bsched_server
 
+    window = window_slice(torch)
+    log("[23] main path: forward-only evaluation through #9 (loss at "
+        "8 x 1024, no_grad)")
+    from repro_torch.configs.base import get_config
+    window["eval_dense"] = eval_loss(
+        torch, get_config("mosa-paper", preset="full", size="tiny",
+                          variant="dense"), "dense baseline")
+    window["eval_window"] = eval_loss(torch, slice_config(local_window=WINDOW),
+                                      "window model")
+    log("[23c] main path: #10 through flash_attention_varlen")
+    window["varlen_entry"] = varlen_entry(torch)
+    window["kernel_cases"] = {name: times[name] for name in (
+        "flash_attention[causal 8x9x1024]", "flash_attention_varlen[W 0]")}
+
     sources = {
         "mosa_attention": ("src/repro_torch/csrc/mosa_attention.cu",
                            "src/repro/kernels/mosa_attention.py:55"),
@@ -1651,14 +2082,21 @@ def main():
         "mosa_block_attention_bwd_dkv": (
             "src/repro_torch/csrc/mosa_backward.cu",
             "src/repro/kernels/mosa_block.py:227"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:26"),
+        "flash_attention_varlen": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:116"),
     }
     # launches: serving's kernels from [5], training's from [8], packed
-    # prefill's from [11], block choice's from [14] and [16]
+    # prefill's from [11], block choice's from [14] and [16], the flash
+    # kernels' from [20] and [23c]
     launches = {name: (res["launches"][name]
                        or train["launches_total"][name]
                        or sched["launches"][name]
                        or block["serve"]["launches"][name]
-                       or block["train"]["launches_total"][name])
+                       or block["train"]["launches_total"][name]
+                       or window["contiguous"]["launches"][name]
+                       or window["varlen_entry"]["launches"][name])
                 for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
@@ -1675,6 +2113,7 @@ def main():
     print(json.dumps({"train": train}))
     print(json.dumps({"sched": sched}))
     print(json.dumps({"block": block}))
+    print(json.dumps({"window": window}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

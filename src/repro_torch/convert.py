@@ -7,8 +7,9 @@ returns the ``state_dict`` of ``repro_torch.nn.transformer.TransformerLM``;
 ``train_state_to_jax`` do the same for a whole train state
 ``{"params": ..., "opt": {"mu": ..., "nu": ...}}`` (the AdamW moments have
 the parameters' tree), which is what a checkpoint holds.  The port keeps
-the JAX parameter names, so a leaf path maps to a state-dict key by
-joining with ``.``; only the layer stacking differs:
+the JAX parameter names (the gated hybrid's ``mixer.gate`` included), so
+a leaf path maps to a state-dict key by joining with ``.``; only the
+layer stacking differs:
 
   * scanned layers live in ``params["layers"]["scan"]["pos{j}"]`` with a
     leading unit axis — unit ``u``, position ``j`` is layer

@@ -7,12 +7,17 @@
     here (plain PyTorch, as the JAX package leaves it to XLA).
   * ``gqa_attention``     — direct (unchunked) GQA attention.
   * ``MultiHeadAttention`` — projections, RoPE, the forward pass, and the
-    serving ``prefill`` / ``decode_step`` on contiguous and paged dense
-    caches, and the Scheduler's packed chunked ``prefill_packed`` on a
-    paged dense cache.  Paged decode goes through ``paged_attention_decode``
-    and packed prefill through ``paged_prefill_attention`` (the CUDA
-    kernels on the card).  Window caches, MLA and the flash kernels are
-    not ported yet.
+    serving ``prefill`` / ``decode_step`` on contiguous and paged dense and
+    window caches, and the packed chunked ``prefill_packed`` on a paged
+    cache.  ``impl`` picks the full forward's attention, as in the JAX
+    package: ``"chunked"`` (plain PyTorch, differentiable) or ``"kernel"``
+    (``flash_attention``, the CUDA kernel #9 on the card; forward-only, as
+    the JAX ``"pallas"`` impl).  Packed rows (``segments``) always take the
+    masked chunked path.  Paged dense decode goes through
+    ``paged_attention_decode`` and packed dense prefill through
+    ``paged_prefill_attention`` (CUDA kernels on the card); the window
+    rings' prefill and decode are plain PyTorch, as in the JAX package.
+    MLA is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,15 +27,17 @@ from torch import nn
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import rope as rope_lib
-from repro_torch.core.kv_cache import DenseKVCache
+from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache, scatter_kept
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn.layers import param, trunc_normal_
 from repro_torch.serve.paged_attention import (paged_attention_decode,
                                                paged_prefill_attention)
-from repro_torch.serve.paged_kv import PagedDenseKVCache
+from repro_torch.serve.paged_kv import PagedDenseKVCache, PagedWindowKVCache
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
 CHUNK = 512          # KV chunk of ``chunked_attention`` in the module's calls
+IMPLS = ("chunked", "kernel")
 
 
 def _mask_bias(q_pos, k_pos, window: int = 0, k_valid=None, q_seg=None,
@@ -133,16 +140,21 @@ def gqa_attention(q, k, v, q_pos, k_pos, scale, window: int = 0,
 
 
 class MultiHeadAttention(nn.Module):
-    """GQA attention with RoPE (partial rotary via ``rotary_frac``)."""
+    """GQA attention with RoPE (partial rotary via ``rotary_frac``),
+    optionally sliding-window (``cfg.window``)."""
 
     def __init__(self, d_model: int, cfg: AttentionConfig,
                  param_dtype=torch.float32, compute_dtype=torch.float32,
-                 rotary_frac: float = 1.0, device=None):
+                 impl: str = "chunked", rotary_frac: float = 1.0,
+                 device=None):
         super().__init__()
         if cfg.mrope_sections or cfg.kind != "gqa":
             raise NotImplementedError("only plain-RoPE GQA attention is ported")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.d_model, self.cfg = d_model, cfg
         self.compute_dtype = compute_dtype
+        self.impl = impl
         self.rotary_frac = rotary_frac
         c = cfg
         self.wq = param((d_model, c.n_heads * c.d_head), param_dtype, device)
@@ -197,13 +209,25 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(B, T, H * d)
         return out.to(cd) @ self.wo.to(cd)
 
+    def _attend(self, q, k, v, positions):
+        """Causal (windowed) self-attention of the full forward: the flash
+        kernel with ``impl="kernel"`` (index order, as the JAX ``pallas``
+        impl), else the chunked path over ``positions``."""
+        c = self.cfg
+        if self.impl == "kernel":
+            return flash_attention(q, k, v, window=c.window)
+        return chunked_attention(q, k, v, positions, positions, self._scale,
+                                 window=c.window, chunk=CHUNK)
+
     def forward(self, x, positions=None, segments=None):
         """Training / prefill-style full forward.  x: (B, T, h).
 
         ``segments``: optional (B, T) document ids of packed rows.  Their
         ``positions`` restart at every document (RoPE), so causality takes
         the packed order and seg_q == seg_k keeps attention inside the
-        document."""
+        document; packed rows take the masked chunked path with either
+        ``impl``.  ``impl="kernel"`` is forward-only: under autograd it
+        raises."""
         c = self.cfg
         B, T, _ = x.shape
         if positions is None:
@@ -212,8 +236,7 @@ class MultiHeadAttention(nn.Module):
         q = self._rope(q, positions)
         k = self._rope(k, positions)
         if segments is None:
-            out = chunked_attention(q, k, v, positions, positions,
-                                    self._scale, window=c.window, chunk=CHUNK)
+            out = self._attend(q, k, v, positions)
         else:
             packed = torch.arange(T, device=x.device).expand(B, T)
             out = chunked_attention(q, k, v, packed, packed, self._scale,
@@ -225,8 +248,12 @@ class MultiHeadAttention(nn.Module):
     def prefill(self, x, cache, positions=None, valid=None):
         """``valid``: optional (B, T) bool — False marks right-pad tokens;
         it only sets how far the cache ``length`` advances."""
+        if isinstance(cache, PagedWindowKVCache):
+            return self._prefill_window_paged(x, cache, positions, valid)
         if isinstance(cache, PagedDenseKVCache):
             return self._prefill_dense_paged(x, cache, positions, valid)
+        if isinstance(cache, WindowKVCache):
+            return self._prefill_window(x, cache, positions, valid)
         if not isinstance(cache, DenseKVCache):
             raise NotImplementedError(f"{type(cache).__name__} is not ported")
         c = self.cfg
@@ -267,20 +294,161 @@ class MultiHeadAttention(nn.Module):
                                 chunk=CHUNK)
         return self._out(out), cache
 
+    def _prefill_window_paged(self, x, cache: PagedWindowKVCache,
+                              positions=None, valid=None):
+        """Paged window prefill, past-aware: the ring as it was before the
+        append (gathered once) supplies the past keys — it holds the last W
+        past tokens, every key a new query's window can reach."""
+        c = self.cfg
+        B, T, _ = x.shape
+        if positions is None:
+            positions = cache.length.long()[:, None] + torch.arange(
+                T, device=x.device)[None]
+        pk, pv = cache.gather()                        # copies, pre-append
+        ppos = cache.positions.clone()                 # the append writes it
+        q, k, v = self._qkv(x)
+        q = self._rope(q, positions)
+        k = self._rope(k, positions)
+        nv = None if valid is None else valid.sum(-1).to(torch.int32)
+        cache = cache.append(k.transpose(1, 2), v.transpose(1, 2), n_valid=nv)
+        k_all = torch.cat([pk.transpose(1, 2).to(k.dtype), k], dim=2)
+        v_all = torch.cat([pv.transpose(1, 2).to(v.dtype), v], dim=2)
+        kpos_all = torch.cat([ppos.long(),
+                              torch.broadcast_to(positions, (B, T)).long()], 1)
+        new_valid = (torch.ones((B, T), dtype=torch.bool, device=x.device)
+                     if valid is None else torch.broadcast_to(valid, (B, T)))
+        k_valid = torch.cat([ppos >= 0, new_valid], dim=1)
+        out = chunked_attention(q, k_all, v_all, positions, kpos_all,
+                                self._scale, window=c.window, k_valid=k_valid,
+                                chunk=CHUNK)
+        return self._out(out), cache
+
+    def _prefill_window(self, x, cache: WindowKVCache, positions=None,
+                        valid=None):
+        """Window prefill: the full forward (the flash kernel with
+        ``impl="kernel"``), then the ring keeps the last W valid tokens'
+        K/V at slot ``position % W`` — the slot ``append_one`` would have
+        used, so the first decode step overwrites the oldest kept token.
+        Right-pad tokens (``valid`` False) are dropped, and ``length``
+        advances by the real token count.  The ring is rewritten in place
+        from empty, as the JAX package builds it anew."""
+        B, T, _ = x.shape
+        pos = (positions if positions is not None
+               else torch.arange(T, device=x.device).expand(B, T))
+        q, k, v = self._qkv(x)
+        q = self._rope(q, pos)
+        k = self._rope(k, pos)
+        y = self._out(self._attend(q, k, v, pos))
+        W = cache.k.shape[1]
+        nv = (torch.full((B,), T, dtype=torch.int32, device=x.device)
+              if valid is None else valid.sum(-1).to(torch.int32))
+        base_pos = torch.broadcast_to(pos, (B, T)).long()
+        t = torch.arange(T, device=x.device)[None]
+        keep = ((t < nv[:, None]) & (t >= nv[:, None] - W)).reshape(-1)
+        rows = torch.arange(B, device=x.device)[:, None].expand(B, T)
+        rows, slots = rows.reshape(-1), (base_pos % W).reshape(-1)
+        cache.k.zero_()
+        cache.v.zero_()
+        cache.positions.fill_(-1)
+        scatter_kept(cache.k, rows, slots,
+                     k.transpose(1, 2).reshape(B * T, -1, k.shape[-1]), keep)
+        scatter_kept(cache.v, rows, slots,
+                     v.transpose(1, 2).reshape(B * T, -1, v.shape[-1]), keep)
+        scatter_kept(cache.positions, rows, slots, base_pos.reshape(-1), keep)
+        return y, WindowKVCache(cache.k, cache.v, cache.positions,
+                                cache.length + nv)
+
+    def _window_attend(self, q, kk, vv, kpos, pos):
+        """Ring-decode attention shared by the contiguous and paged window
+        caches: q (B, H, 1, d); kk/vv (B, W, Hkv, d) in the ring layout;
+        kpos (B, W) positions (-1 = empty); pos (B, 1)."""
+        c = self.cfg
+        B = q.shape[0]
+        kk = kk.transpose(1, 2).to(q.dtype)                # (B, Hkv, W, d)
+        vv = vv.transpose(1, 2).to(q.dtype)
+        Hkv, R = c.n_kv_heads, c.n_heads // c.n_kv_heads
+        qg = q.reshape(B, Hkv, R, 1, c.d_head).float()
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kk.float()) * self._scale
+        ok = ((kpos >= 0)[:, None, None, None, :]
+              & (kpos[:, None, None, None, :] <= pos[:, None, None, :, None]))
+        s = torch.where(ok, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(vv.dtype), vv)
+        return self._out(out.reshape(B, c.n_heads, 1, c.d_head))
+
+    def _decode_window(self, x, cache: WindowKVCache, positions=None):
+        pos = cache.length.long()[:, None] if positions is None else positions
+        q, k, v = self._qkv(x)                             # (B, H, 1, d)
+        q = self._rope(q, pos)
+        k = self._rope(k, pos)
+        cache = cache.append_one(k[:, :, 0], v[:, :, 0])
+        return self._window_attend(q, cache.k, cache.v, cache.positions,
+                                   pos), cache
+
+    def _decode_window_paged(self, x, cache: PagedWindowKVCache,
+                             positions=None):
+        """The gather path (the paged decode kernel serves dense caches
+        only, as in the JAX package)."""
+        pos = cache.length.long()[:, None] if positions is None else positions
+        q, k, v = self._qkv(x)
+        q = self._rope(q, pos)
+        k = self._rope(k, pos)
+        cache = cache.append_one(k[:, :, 0], v[:, :, 0])
+        kk, vv = cache.gather()            # ring layout == WindowKVCache.k
+        return self._window_attend(q, kk, vv, cache.positions, pos), cache
+
     def prefill_packed(self, x, cache, meta):
-        """Packed multi-segment chunked prefill: ONE pass over the packed
-        stream.  x: (1, C, h), N prompt segments back to back, each
-        continuing a different batch row of the paged cache; ``meta`` is
-        the layout ``TransformerLM.prefill_packed`` builds.  K/V scatter
-        straight into each token's row blocks (``append_packed``), then
-        every token attends its row's keys up to its own position through
-        ``paged_prefill_attention`` (the CUDA kernel on the card)."""
+        """Packed multi-segment chunked prefill.  x: (1, C, h), N prompt
+        segments back to back, each continuing a different batch row of the
+        paged cache; ``meta`` is the layout ``TransformerLM.prefill_packed``
+        builds.  A paged window cache unpacks the segments
+        (``_prefill_packed_window``); a paged dense cache takes ONE pass
+        over the packed stream (``_prefill_packed_dense``)."""
+        if isinstance(cache, PagedWindowKVCache):
+            return self._prefill_packed_window(x, cache, meta)
         if not isinstance(cache, PagedDenseKVCache):
-            raise ValueError(f"packed prefill requires a paged dense cache, "
-                             f"got {type(cache).__name__}")
+            raise ValueError(f"packed prefill requires a paged cache, got "
+                             f"{type(cache).__name__}")
+        return self._prefill_packed_dense(x, cache, meta)
+
+    def _prefill_packed_window(self, x, cache: PagedWindowKVCache, meta):
+        """Window side of packed prefill: unpack to a (N, C) right-padded
+        batch over an N-row view of the paged cache (row fields gathered,
+        pools shared) and reuse ``_prefill_window_paged``; the updated row
+        fields are written back in place (inactive segments, row -1, are
+        not).  The window side is O(W)-bounded, so the N*C re-projection is
+        the price of sharing the ring math, as in the JAX package."""
+        B = cache.block_table.shape[0]
+        rows = meta["rows"].long()
+        rowc = rows.clamp(0, B - 1)
+        gc = PagedWindowKVCache(cache.k, cache.v, cache.block_table[rowc],
+                                cache.positions[rowc], cache.length[rowc])
+        xs = x[0][meta["tok_idx"]] * meta["in_seg"][..., None].to(x.dtype)
+        y_seg, gc2 = self._prefill_window_paged(xs, gc, None, meta["in_seg"])
+        # segment of each batch row (-1: none); slot B takes the inactive
+        sel = torch.full((B + 1,), -1, dtype=torch.long, device=x.device)
+        sel.index_copy_(0, torch.where(rows < 0, B, rows),
+                        torch.arange(rows.shape[0], device=x.device))
+        sel = sel[:B]
+        has, selc = sel >= 0, sel.clamp(min=0)
+        cache.positions.copy_(torch.where(has[:, None], gc2.positions[selc],
+                                          cache.positions))
+        length = torch.where(has, gc2.length[selc], cache.length)
+        cache = PagedWindowKVCache(cache.k, cache.v, cache.block_table,
+                                   cache.positions, length)
+        segc = meta["seg_of_tok"].long().clamp(min=0)
+        y = y_seg[segc, meta["local_of_tok"].long()]          # (C, h)
+        y = torch.where((meta["row_of_tok"] >= 0)[:, None], y, 0.0)
+        return y[None].to(y_seg.dtype), cache
+
+    def _prefill_packed_dense(self, x, cache: PagedDenseKVCache, meta):
+        """Dense side of packed prefill: ONE pass over the packed stream.
+        K/V scatter straight into each token's row blocks
+        (``append_packed``), then every token attends its row's keys up to
+        its own position through ``paged_prefill_attention`` (the CUDA
+        kernel on the card)."""
         if self.cfg.window:
-            raise NotImplementedError("packed prefill of window attention "
-                                      "is not ported yet")
+            raise ValueError("a paged dense cache implies window == 0")
         _, C, _ = x.shape
         pos = meta["pos_of_tok"][None]                     # (1, C)
         q, k, v = self._qkv(x)                             # (1, H, C, d)
@@ -308,8 +476,12 @@ class MultiHeadAttention(nn.Module):
 
     def decode_step(self, x, cache, positions=None):
         """x: (B, 1, h); attends over the cache + itself."""
+        if isinstance(cache, PagedWindowKVCache):
+            return self._decode_window_paged(x, cache, positions)
         if isinstance(cache, PagedDenseKVCache):
             return self._decode_dense_paged(x, cache, positions)
+        if isinstance(cache, WindowKVCache):
+            return self._decode_window(x, cache, positions)
         if not isinstance(cache, DenseKVCache):
             raise NotImplementedError(f"{type(cache).__name__} is not ported")
         c = self.cfg

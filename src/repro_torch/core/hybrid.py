@@ -1,12 +1,17 @@
-"""Hybrid attention layer: a few dense heads + many MoSA heads, summed
-(port of ``repro.core.hybrid`` for ``variant="mosa"``).
+"""Hybrid attention layer: a few dense (or sliding-window local) heads +
+many MoSA heads (port of ``repro.core.hybrid`` for ``variant="mosa"``).
 
-Each side carries its own output projection and the two outputs are added
-(eq. 2/3 of the paper).  The sparse side selects tokens or, with
-``selection_granularity="block"``, KV blocks (its serving cache is then
-``MoSABlockKVCache``).  The fixed / routing baselines and window dense
-heads are not ported yet, nor is the gated combine, which the JAX package
-uses only for block choice beside window dense heads.
+Each side carries its own output projection (eq. 2/3 of the paper) and
+the two outputs are added — except for block choice beside window dense
+heads (``local_window > 0``, the paper's §3.4 long-sequence form), where
+learned per-token sigmoid gates blend them (``_gated`` / ``_combine``,
+parameter ``gate`` (d_model, 2), zero init).  The sparse side selects
+tokens or, with ``selection_granularity="block"``, KV blocks (its serving
+cache is then ``MoSABlockKVCache``); the dense side's serving cache is a
+window ring (``WindowKVCache`` / ``PagedWindowKVCache``) when
+``local_window > 0``.  ``dense_impl`` picks the dense side's full-forward
+attention (``"chunked"`` or ``"kernel"``, the flash kernel #9).  The
+fixed / routing baselines are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,21 +22,22 @@ from torch import nn
 from repro_torch.configs.base import AttentionConfig, MoSAConfig
 from repro_torch.core.attention import MultiHeadAttention
 from repro_torch.core.kv_cache import (DenseKVCache, MoSABlockKVCache,
-                                      MoSAKVCache)
+                                      MoSAKVCache, WindowKVCache)
 from repro_torch.core.mosa import MoSAAttention
-from repro_torch.serve.paged_kv import PagedConfig, PagedDenseKVCache
+from repro_torch.nn.layers import param
+from repro_torch.serve.paged_kv import (PagedConfig, PagedDenseKVCache,
+                                        PagedWindowKVCache)
 
 
 class HybridAttention(nn.Module):
     def __init__(self, d_model: int, cfg: MoSAConfig,
                  rope_theta: float = 10000.0, rotary_frac: float = 0.5,
                  param_dtype=torch.float32, compute_dtype=torch.float32,
-                 variant: str = "mosa", impl: str = "einsum", device=None):
+                 variant: str = "mosa", impl: str = "einsum",
+                 dense_impl: str = "chunked", device=None):
         super().__init__()
         if variant != "mosa":
             raise NotImplementedError(f"hybrid variant {variant!r} is not ported")
-        if cfg.local_window > 0:
-            raise NotImplementedError("window dense heads are not ported yet")
         self.d_model, self.cfg = d_model, cfg
         self.sparse = MoSAAttention(d_model, cfg, rope_theta, rotary_frac,
                                     param_dtype, compute_dtype, impl=impl,
@@ -42,25 +48,61 @@ class HybridAttention(nn.Module):
                 n_kv_heads=cfg.n_dense_heads, d_head=cfg.d_head,
                 rope_theta=rope_theta, window=cfg.local_window)
             self.dense = MultiHeadAttention(d_model, acfg, param_dtype,
-                                            compute_dtype,
+                                            compute_dtype, impl=dense_impl,
                                             rotary_frac=rotary_frac,
                                             device=device)
         else:
             self.dense = None
+        if self._gated():
+            self.gate = param((d_model, 2), param_dtype, device)
+
+    @property
+    def dense_impl(self) -> str:
+        """The dense side's full-forward attention: ``"chunked"`` or
+        ``"kernel"`` (settable on a built model)."""
+        return self.dense.impl if self.dense is not None else "chunked"
+
+    @dense_impl.setter
+    def dense_impl(self, impl: str):
+        if self.dense is not None:
+            self.dense.impl = impl
+
+    def _gated(self) -> bool:
+        """Gate-combined form: block choice beside sliding-window dense
+        heads blends the two sides with learned per-token sigmoid gates
+        instead of summing them; token choice and windowless configs keep
+        the paper's plain head sum."""
+        c = self.cfg
+        return (c.selection_granularity == "block" and c.local_window > 0
+                and c.n_dense_heads > 0)
 
     def init(self, generator: torch.Generator):
         self.sparse.init(generator)
         if self.dense is not None:
             self.dense.init(generator)
+        if self._gated():
+            # gates open at 0.5 / 0.5: the summed form halved
+            nn.init.zeros_(self.gate)
+
+    def _combine(self, x, ys, yd):
+        """Merge the sparse and dense outputs: the plain sum, or the learned
+        per-token gates when ``_gated()``."""
+        if yd is None:
+            return ys
+        if self._gated():
+            g = torch.sigmoid(x.float() @ self.gate.float())
+            out = ys.float() * g[..., 0:1] + yd.float() * g[..., 1:2]
+            return out.to(ys.dtype)
+        return ys + yd
 
     def forward(self, x, positions=None, segments=None):
-        """x: (B, T, h) -> sparse + dense heads' outputs.  ``segments``:
-        optional (B, T) document ids of packed rows (both sides mask
-        cross-document attention)."""
+        """x: (B, T, h) -> the combined sparse and dense heads' outputs.
+        ``segments``: optional (B, T) document ids of packed rows (both
+        sides mask cross-document attention)."""
         y = self.sparse(x, positions, segments=segments)
-        if self.dense is not None:
-            y = y + self.dense(x, positions, segments)
-        return y
+        yd = (None if self.dense is None
+              else self.dense(x, positions, segments))
+        return self._combine(x, y, yd)
 
     def router_health(self, x):
         """Expert-choice health of the sparse side (train telemetry)."""
@@ -83,7 +125,19 @@ class HybridAttention(nn.Module):
             caches = {"sparse": MoSAKVCache.create(
                 batch, c.n_mosa_heads, k, c.d_head, dtype, device)}
         if c.n_dense_heads > 0:
-            if paged is not None:
+            if c.local_window > 0 and paged is not None:
+                W = min(c.local_window, max_len)
+                caches["dense"] = PagedWindowKVCache.create(
+                    batch, W, c.n_dense_heads, c.d_head, dtype,
+                    block_size=paged.block_size,
+                    num_blocks=paged.num_window_blocks,
+                    identity_tables=paged.num_window_blocks == 0,
+                    device=device)
+            elif c.local_window > 0:
+                caches["dense"] = WindowKVCache.create(
+                    batch, c.local_window, c.n_dense_heads, c.d_head, dtype,
+                    device)
+            elif paged is not None:
                 caches["dense"] = PagedDenseKVCache.create(
                     batch, max_len, c.n_dense_heads, c.d_head, dtype,
                     block_size=paged.block_size, num_blocks=paged.num_blocks,
@@ -96,11 +150,11 @@ class HybridAttention(nn.Module):
     def prefill(self, x, caches, positions=None, valid=None):
         y, sc = self.sparse.prefill(x, caches["sparse"], positions, valid)
         out = dict(caches, sparse=sc)
+        yd = None
         if self.dense is not None:
-            yd, dc = self.dense.prefill(x, caches["dense"], positions, valid)
-            out["dense"] = dc
-            y = y + yd
-        return y, out
+            yd, out["dense"] = self.dense.prefill(x, caches["dense"],
+                                                 positions, valid)
+        return self._combine(x, y, yd), out
 
     def prefill_packed(self, x, caches, meta):
         """Packed chunked prefill: the sparse side runs per-segment union
@@ -108,25 +162,27 @@ class HybridAttention(nn.Module):
         paged packed path."""
         y, sc = self.sparse.prefill_packed(x, caches["sparse"], meta)
         out = dict(caches, sparse=sc)
+        yd = None
         if self.dense is not None:
-            yd, dc = self.dense.prefill_packed(x, caches["dense"], meta)
-            out["dense"] = dc
-            y = y + yd
-        return y, out
+            yd, out["dense"] = self.dense.prefill_packed(x, caches["dense"],
+                                                        meta)
+        return self._combine(x, y, yd), out
 
     def decode_step(self, x, caches, positions=None):
         y, sc = self.sparse.decode_step(x, caches["sparse"], positions)
         out = dict(caches, sparse=sc)
+        yd = None
         if self.dense is not None:
-            yd, dc = self.dense.decode_step(x, caches["dense"], positions)
-            out["dense"] = dc
-            y = y + yd
-        return y, out
+            yd, out["dense"] = self.dense.decode_step(x, caches["dense"],
+                                                     positions)
+        return self._combine(x, y, yd), out
 
     def kv_total(self, T: int) -> int:
-        """Paper Table 2 metric: KV = T*H_dense + k*H_mosa."""
+        """Paper Table 2 metric: KV = T*H_dense + k*H_mosa (the window caps
+        the dense side)."""
         c = self.cfg
-        return T * c.n_dense_heads + self._sparse_k(T) * c.n_mosa_heads
+        dense_T = min(T, c.local_window) if c.local_window > 0 else T
+        return dense_T * c.n_dense_heads + self._sparse_k(T) * c.n_mosa_heads
 
     def _sparse_k(self, T: int) -> int:
         # Mirrors MoSAAttention.k_for, including the cap at T.

@@ -1,6 +1,8 @@
 """Contiguous KV caches for serving (port of ``repro.core.kv_cache``).
 
   * ``DenseKVCache`` — (B, S, Hkv, d) append cache with per-row ``length``.
+  * ``WindowKVCache`` — ring buffer of the last ``W`` tokens (the sliding-
+    window dense heads): position ``p`` lives at slot ``p % W``.
   * ``MoSAKVCache``  — each MoSA head keeps only its running top-k tokens;
     KV memory per head is O(k), independent of context length.  Empty-slot
     sentinels: ``scores == -inf`` and ``idx == -1``; ``idx`` stays sorted
@@ -69,6 +71,34 @@ class DenseKVCache(NamedTuple):
         scatter_kept(self.v, rows, pos, v_new.reshape(B * Tnew, *v_new.shape[2:]), ok)
         adv = Tnew if n_valid is None else n_valid.to(torch.int32)
         return DenseKVCache(self.k, self.v, self.length + adv)
+
+
+class WindowKVCache(NamedTuple):
+    k: torch.Tensor          # (B, W, Hkv, d) ring buffer
+    v: torch.Tensor
+    positions: torch.Tensor  # (B, W) int32 original positions; -1 = empty
+    length: torch.Tensor     # (B,) int32 — tokens seen
+
+    @classmethod
+    def create(cls, batch, window, n_kv_heads, d_head, dtype=torch.bfloat16,
+               device=None):
+        shape = (batch, window, n_kv_heads, d_head)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.full((batch, window), -1, dtype=torch.int32,
+                              device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    def append_one(self, k_new, v_new):
+        """k_new/v_new: (B, Hkv, d) — one decode step; row b writes slot
+        ``length[b] % W`` (rows may sit at different positions)."""
+        B, W = self.positions.shape
+        rows = torch.arange(B, device=k_new.device)
+        slot = self.length.long() % W
+        self.k[rows, slot] = k_new.to(self.k.dtype)
+        self.v[rows, slot] = v_new.to(self.v.dtype)
+        self.positions[rows, slot] = self.length
+        return WindowKVCache(self.k, self.v, self.positions, self.length + 1)
 
 
 class MoSAKVCache(NamedTuple):

@@ -48,6 +48,8 @@ SIGNATURES = {
     "repro_mosa_block_attention_fwd_res": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+    "repro_flash_attention_varlen": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "repro_paged_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }

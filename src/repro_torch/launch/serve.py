@@ -5,7 +5,8 @@
 default) and serves whole batches: ``generate`` runs one prefill over the
 prompts and then ``gen_len - 1`` decode steps, greedy by default.  With
 ``paged=PagedConfig(...)`` the dense heads keep their KV in block-paged
-pools; the MoSA heads keep their O(k) streaming cache.  Auto-sized pools
+pools (window rings in ``PagedWindowKVCache`` pools for sliding-window
+heads); the MoSA heads keep their O(k) streaming cache.  Auto-sized pools
 (``num_blocks == 0``) give identity block tables for ``generate``; an
 explicit budget leaves the tables unallocated for
 ``repro_torch.serve.scheduler.Scheduler``, which drives the per-row ops:
@@ -54,7 +55,8 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------- batch-row cache ops
 # The caches are a list with one entry per layer: a ``PagedDenseKVCache``
 # (attention layers) or a dict {"sparse": MoSAKVCache or MoSABlockKVCache,
-# "dense": PagedDenseKVCache} (MoSA hybrid layers).  The pools of a paged
+# "dense": PagedDenseKVCache} (MoSA hybrid layers).  The row ops raise for
+# window rings (their Scheduler support is not ported yet).  The pools of a paged
 # cache are shared by every row and stay behind block ids; its block table
 # and length are per row.  A MoSA cache is per row in every field.
 
@@ -202,7 +204,8 @@ class Server:
         B, P = prompts.shape
         if B != self.batch:
             raise ValueError(f"batch {B} != server batch {self.batch}")
-        if self.paged is not None and self.paged.num_blocks:
+        if self.paged is not None and (self.paged.num_blocks
+                                       or self.paged.num_window_blocks):
             raise ValueError("generate needs auto-sized paged pools "
                              "(identity block tables); budgeted pools are "
                              "managed by repro_torch.serve.scheduler")

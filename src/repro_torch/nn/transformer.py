@@ -13,10 +13,16 @@ cross-entropy; packed rows through ``segments``/``positions``).  Remat
 the block's forward runs again in the backward); ``mosa`` and
 ``dots_saveable`` are not ported yet.
 
-Ported mixers: ``mosa`` (the hybrid) and ``attn``; FFN: ``dense``.
+Ported mixers: ``mosa`` (the hybrid), ``attn`` and ``attn_local`` (as
+the JAX package builds them: ``attn`` drops a configured window,
+``attn_local`` defaults it to 1024); FFN: ``dense``.  A window attention
+layer serves from a window ring (``WindowKVCache``, or
+``PagedWindowKVCache`` under a ``PagedConfig``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -25,11 +31,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.attention import MultiHeadAttention
 from repro_torch.core.hybrid import HybridAttention
-from repro_torch.core.kv_cache import DenseKVCache
+from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.serve.paged_attention import packed_token_layout
-from repro_torch.serve.paged_kv import PagedDenseKVCache
+from repro_torch.serve.paged_kv import PagedDenseKVCache, PagedWindowKVCache
 
 
 def sample_logits(logits, generator: torch.Generator | None = None,
@@ -88,10 +94,12 @@ class Block(nn.Module):
                 c.d_model, c.mosa, c.attention.rope_theta, rotary_frac=0.5,
                 param_dtype=c.pdtype, compute_dtype=c.cdtype,
                 variant=c.sparse_variant, impl=c.mosa.impl, device=device)
-        elif spec.mixer == "attn":
+        elif spec.mixer in ("attn", "attn_local"):
             acfg = c.attention
-            if acfg.window:
-                raise NotImplementedError("window attention is not ported yet")
+            if spec.mixer == "attn" and acfg.window:
+                acfg = dataclasses.replace(acfg, window=0)
+            if spec.mixer == "attn_local" and not acfg.window:
+                acfg = dataclasses.replace(acfg, window=1024)
             self.mixer = MultiHeadAttention(c.d_model, acfg, c.pdtype,
                                             c.cdtype, rotary_frac=1.0,
                                             device=device)
@@ -131,6 +139,18 @@ class Block(nn.Module):
             return self.mixer.init_cache(batch, max_len, dtype, paged=paged,
                                          device=device)
         a = c.attention
+        window = self.mixer.cfg.window
+        if window:
+            W = min(window, max_len)
+            if paged is not None:
+                return PagedWindowKVCache.create(
+                    batch, W, a.n_kv_heads, a.d_head, dtype,
+                    block_size=paged.block_size,
+                    num_blocks=paged.num_window_blocks,
+                    identity_tables=paged.num_window_blocks == 0,
+                    device=device)
+            return WindowKVCache.create(batch, W, a.n_kv_heads, a.d_head,
+                                        dtype, device)
         if paged is not None:
             return PagedDenseKVCache.create(
                 batch, max_len, a.n_kv_heads, a.d_head, dtype,

@@ -1,11 +1,12 @@
-"""Block-paged dense KV cache (port of ``repro.serve.paged_kv``).
+"""Block-paged dense and window KV caches (port of ``repro.serve.paged_kv``).
 
 KV lives in fixed-size blocks of ``block_size`` tokens inside a pool
 ``(N, block_size, Hkv, d)``; a per-row block table maps logical block
 ``pos // block_size`` to a physical block id (``-1`` = unallocated).
-``append`` / ``gather`` reproduce the contiguous ``DenseKVCache``
-semantics: ``gather()`` equals the contiguous cache at every valid
-position.  Writes through an unallocated (``-1``) table entry are dropped.
+``append`` / ``gather`` reproduce the contiguous ``DenseKVCache`` and
+``WindowKVCache`` semantics: ``gather()`` equals the contiguous cache at
+every valid position (the window ring in its ring layout).  Writes through
+an unallocated (``-1``) table entry are dropped.
 
 Appends write the pools IN PLACE (see ``repro_torch.core.kv_cache``).
 
@@ -30,12 +31,14 @@ from repro_torch.obs.metrics import registry as _obs_registry
 
 @dataclasses.dataclass(frozen=True)
 class PagedConfig:
-    """Static paged-cache geometry.  ``num_blocks == 0`` auto-sizes the pool
-    to the contiguous worst case (``batch * ceil(max_len / block_size)``)
-    with identity block tables."""
+    """Static paged-cache geometry.  ``num_blocks == 0`` auto-sizes the
+    dense pool to the contiguous worst case (``batch * ceil(max_len /
+    block_size)``) with identity block tables; ``num_window_blocks == 0``
+    does the same for the window rings (``batch * W / block_size``)."""
 
     block_size: int = 16
-    num_blocks: int = 0
+    num_blocks: int = 0          # dense-group pool size (0 = worst case)
+    num_window_blocks: int = 0   # window-group pool size (0 = worst case)
 
 
 class BlockPool:
@@ -218,6 +221,108 @@ class PagedDenseKVCache(NamedTuple):
         S = nb * self.block_size
         kk = self.k[bt].reshape(B, S, *self.k.shape[2:])
         vv = self.v[bt].reshape(B, S, *self.v.shape[2:])
+        return kk, vv
+
+
+class PagedWindowKVCache(NamedTuple):
+    """Paged counterpart of ``WindowKVCache`` (ring of the last W tokens).
+    The ring arithmetic is the contiguous cache's: the token at position
+    ``p`` lives at slot ``p % W``, physically at
+    ``pool[table[b, slot // bs], slot % bs]``, so ``gather()`` returns the
+    exact ``(B, W, Hkv, d)`` ring ``WindowKVCache.k`` holds.  W must be a
+    multiple of ``block_size``.  Ring blocks are overwritten in place as
+    the window slides.  (The JAX class's ``append_packed`` has no caller
+    there — packed window prefill unpacks the segments — and is not
+    ported.)"""
+
+    k: torch.Tensor            # (N, bs, Hkv, d) physical pool
+    v: torch.Tensor
+    block_table: torch.Tensor  # (B, W // bs) int32; -1 = unallocated
+    positions: torch.Tensor    # (B, W) int32 original positions; -1 = empty
+    length: torch.Tensor       # (B,) int32 — tokens seen
+
+    @classmethod
+    def create(cls, batch, window, n_kv_heads, d_head, dtype=torch.bfloat16,
+               *, block_size: int = 16, num_blocks: int = 0,
+               identity_tables: bool = False, device=None):
+        if window % block_size:
+            raise ValueError(f"window {window} must be a multiple of "
+                             f"block_size {block_size} (ring slots map to "
+                             f"blocks by slot // block_size)")
+        wb = window // block_size
+        n = num_blocks or batch * wb
+        shape = (n, block_size, n_kv_heads, d_head)
+        if identity_tables:
+            if n < batch * wb:
+                raise ValueError(f"pool of {n} blocks cannot hold identity "
+                                 f"tables for {batch} x {wb}")
+            table = torch.arange(batch * wb, dtype=torch.int32,
+                                 device=device).reshape(batch, wb)
+        else:
+            table = torch.full((batch, wb), -1, dtype=torch.int32,
+                               device=device)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   table,
+                   torch.full((batch, window), -1, dtype=torch.int32,
+                              device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def window(self) -> int:
+        return self.positions.shape[1]
+
+    def _write(self, k_vals, v_vals, pos, drop):
+        """Write (B, T) tokens at ring slots ``pos % W`` in place; ``drop``
+        (B, T) masks writes (a -1 table entry drops the KV write too)."""
+        W, bs = self.window, self.block_size
+        B, T = pos.shape
+        pos = pos.long()
+        slot = pos % W
+        blk = torch.gather(self.block_table.long(), 1, slot // bs)
+        keep = (~drop & (blk >= 0)).reshape(-1)
+        blk, off = blk.reshape(-1), (slot % bs).reshape(-1)
+        rest = k_vals.shape[2:]
+        scatter_kept(self.k, blk, off, k_vals.reshape(B * T, *rest), keep)
+        scatter_kept(self.v, blk, off, v_vals.reshape(B * T, *rest), keep)
+        rows = torch.arange(B, device=pos.device)[:, None].expand(B, T)
+        scatter_kept(self.positions, rows.reshape(-1), slot.reshape(-1),
+                     pos.reshape(-1), (~drop).reshape(-1))
+
+    def append_one(self, k_new, v_new):
+        """k_new/v_new: (B, Hkv, d) — one decode step, per-row slots."""
+        pos = self.length[:, None]
+        self._write(k_new[:, None], v_new[:, None], pos,
+                    torch.zeros_like(pos, dtype=torch.bool))
+        return PagedWindowKVCache(self.k, self.v, self.block_table,
+                                  self.positions, self.length + 1)
+
+    def append(self, k_new, v_new, n_valid=None):
+        """Multi-token (prefill) append, k_new/v_new (B, T, Hkv, d): keep
+        the last ``min(W, n)`` real tokens per row; right-pad tails and
+        tokens a later token of the same append would overwrite are
+        dropped (ring slots must be written once)."""
+        B, T = k_new.shape[:2]
+        dev = k_new.device
+        nv = (torch.full((B,), T, dtype=torch.int32, device=dev)
+              if n_valid is None else n_valid.to(torch.int32))
+        t = torch.arange(T, device=dev)[None]
+        pos = self.length.long()[:, None] + t
+        drop = (t >= nv[:, None]) | (t < nv[:, None] - self.window)
+        self._write(k_new, v_new, pos, drop)
+        return PagedWindowKVCache(self.k, self.v, self.block_table,
+                                  self.positions, self.length + nv)
+
+    def gather(self):
+        """(k, v) in the contiguous ring (B, W, Hkv, d) layout."""
+        bt = self.block_table.long().clamp(min=0)
+        B = bt.shape[0]
+        kk = self.k[bt].reshape(B, self.window, *self.k.shape[2:])
+        vv = self.v[bt].reshape(B, self.window, *self.v.shape[2:])
         return kk, vv
 
 

@@ -34,8 +34,9 @@ Differences from the JAX package: the server holds its module on one
 device (no mesh, no sharding hints); sampling goes through
 ``sample_logits`` with a ``torch.Generator`` (greedy by default, as there);
 results are int32 CPU tensors; the whole ``run`` loop and every cache op
-runs under ``torch.inference_mode()``.  Window caches are not ported: a
-model with window layers raises ``NotImplementedError``.
+runs under ``torch.inference_mode()``.  The window pool, its lazy ring
+and the window row ops are not ported yet: a model with window layers
+raises ``NotImplementedError`` (``Server.generate`` serves it).
 """
 
 from __future__ import annotations
@@ -231,7 +232,8 @@ class Scheduler:
         if other:
             raise NotImplementedError(f"the Scheduler serves paged-dense and "
                                       f"MoSA caches only, not {other} "
-                                      f"(window caches are not ported)")
+                                      f"(the Scheduler's window pool is not "
+                                      f"ported yet)")
         dense = [x for x in leaves if isinstance(x, PagedDenseKVCache)]
         if not dense:
             raise ValueError("paged scheduler needs at least one paged dense "

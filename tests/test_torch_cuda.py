@@ -15,7 +15,10 @@ query tiles with d = 80 and with d = 128 (the widest d the kernels take,
 and their largest shared-memory footprint).  The block-choice kernels
 (#5-#8) and their autograd Function are held to the same tolerances at the
 slice's shape and at the edge cases of ``BLOCK_CASES``; at bs = 1, #5 and
-#6 equal #1 and #2 bit for bit.
+#6 equal #1 and #2 bit for bit.  The flash kernels #9 and #10 are held to
+the same tolerances (GQA, q_offset, windows, ragged tiles, segments of
+length 1, a padding tail that must come back as zeros), and the window
+model is served on the card and the CPU with identical greedy tokens.
 """
 
 import pytest
@@ -495,3 +498,86 @@ def test_block_choice_serving_card_matches_cpu(dev):
     assert sg == sc and sg["prefix_hits"] >= 1
     for rid in rc:
         assert torch.equal(rg[rid], rc[rid]), rid
+
+
+# (B, Hq, Hkv, Tq, Tk, d, window): causal and windowed, GQA, Tq < Tk
+# through q_offset, ragged tiles, d not a multiple of 32, d = 128
+FLASH_CASES = [(2, 4, 4, 100, 100, 64, 0), (2, 8, 2, 130, 130, 64, 32),
+               (1, 4, 2, 1, 300, 64, 64), (1, 4, 2, 77, 200, 36, 0),
+               (2, 2, 2, 70, 70, 128, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, dtype, case):
+    from repro_torch.kernels import flash_attention as F
+    B, Hq, Hkv, Tq, Tk, d, window = case
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, Hq, Tq, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, Hkv, Tk, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    before = F.LAUNCHES.count
+    got = F.flash_attention(q, k, v, window=window)
+    assert F.LAUNCHES.count == before + 1 and got.dtype == dtype
+    want = F.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 window=window)
+    torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+# (segment lengths, total, Hq, Hkv, d, window): segments of length 1, a
+# padding tail (total > sum), GQA, windows
+VARLEN_CASES = [([13, 5, 22, 1], 41, 4, 2, 16, 0),
+                ([1, 1, 70, 1, 3], 80, 4, 2, 64, 8),
+                ([100, 37], 137, 2, 2, 64, 0), ([65, 64, 1], 130, 8, 2, 32, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", VARLEN_CASES)
+def test_flash_varlen_kernel_matches_plain(dev, dtype, case):
+    from repro_torch.kernels import flash_attention as F
+    lens, total, Hq, Hkv, d, window = case
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(total, Hq, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(total, Hkv, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    cu = torch.tensor([0] + list(torch.tensor(lens).cumsum(0)),
+                      dtype=torch.int32, device=dev)
+    before = F.LAUNCHES_VARLEN.count
+    got = F.flash_attention_varlen(q, k, v, cu, window=window)
+    assert F.LAUNCHES_VARLEN.count == before + 1
+    want = F.flash_attention_varlen_ref(q.float(), k.float(), v.float(), cu,
+                                        window=window)
+    torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    assert not got[int(cu[-1]):].any()
+
+
+def test_window_model_serving_card_matches_cpu(dev):
+    """The smoke model with window dense heads (W 16), token and block
+    choice (gated), served on the card with the flash route and on the
+    CPU, same weights: identical greedy tokens over contiguous rings (#9
+    once per layer) and over identity-paged rings (#9 never)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    prompts = torch.randint(2, 512, (2, 40),
+                            generator=torch.Generator().manual_seed(10))
+    for block in ({}, dict(selection_granularity="block", sel_block_size=16)):
+        cfg = get_config("mosa-paper", preset="smoke", variant="mosa",
+                         local_window=16, **block)
+        for paged in (None, PagedConfig(16)):
+            gpu = Server(cfg, batch=2, max_len=64, paged=paged, seed=5)
+            state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+            cpu = Server(cfg, batch=2, max_len=64, paged=paged, params=state,
+                         device="cpu")
+            for srv in (gpu, cpu):
+                for layer in srv.model.layers:
+                    layer.mixer.dense_impl = "kernel"
+            before = F.LAUNCHES.count
+            tg, _ = gpu.generate(prompts, 8)
+            want = cfg.n_layers if paged is None else 0
+            assert F.LAUNCHES.count - before == want
+            tc, _ = cpu.generate(prompts, 8)
+            assert torch.equal(tg.cpu(), tc), (block, paged)

@@ -37,12 +37,13 @@ def test_port_sources_import_no_jax_and_no_reference_package():
 def test_port_imports_with_jax_and_reference_blocked():
     """A fresh interpreter where ``import jax`` / ``import repro`` fail still
     imports the whole serving (batch and Scheduler) and training paths,
-    block choice's kernels included."""
+    block choice's and the flash kernels included."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None;"
             "sys.modules['triton'] = None;"
             "import repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.mosa_vjp, "
             "repro_torch.kernels.mosa_block, "
+            "repro_torch.kernels.flash_attention, "
             "repro_torch.launch.train, repro_torch.serve.scheduler, "
             "repro_torch.obs, repro_torch.serve.loadgen, "
             "repro_torch.serve.prefix_cache; print('ok')")
