@@ -11,9 +11,13 @@ Phases (any failure raises, so the script exits nonzero):
   3. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the slices' shapes and at edge cases (TF32 is
      switched off for the plain versions' matmuls): MoSA attention, its
-     training forward (o_pre, lse), the dq and dk/dv backward kernels, the
-     autograd Function that joins them (grads of q, k, v and r against
-     autograd of the plain version), paged decode and packed paged
+     training forward (o_pre, lse), the fused backward (dq, dk, dv in one
+     launch, every case with S <= 64, S = 1 and S = 64 at d 32 and 128
+     included; two launches bitwise equal) and the split dq and dk/dv
+     kernels (every case, S = 70 included), the autograd Function that
+     joins them (grads of q, k, v and r against autograd of the plain
+     version; the fused route at S <= 64, the split one above, checked by
+     the counters), paged decode and packed paged
      prefill (padding tokens and inactive segments exact zeros), and the
      four block-choice kernels (#5-#8) and their autograd Function at the
      block slice's shape and at edge cases (a ragged last block, empty
@@ -22,7 +26,8 @@ Phases (any failure raises, so the script exits nonzero):
      and #10 (GQA, Tq < Tk through q_offset, windows, ragged tiles, d 36
      and 128, segments of length 1, a padding tail that must be zeros);
   4. time each kernel, its plain version and one PyTorch yardstick call
-     with CUDA events (L2 flushed before every timed launch);
+     with CUDA events (L2 flushed before every timed launch); also the
+     autograd Function's backward prologue (g~, dr, delta) on its own;
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
@@ -35,9 +40,10 @@ Phases (any failure raises, so the script exits nonzero):
   8. train ``mosa-paper-tiny-mosa32`` at full width with ``Trainer``
      (``impl="kernel"``, fp32, remat none): seq 1024, global batch 64 as 8
      microbatches of 8, lr 2.5e-4, clip 0.25, 4 AdamW steps, the first
-     untimed — over the 3 timed steps the counters of the training forward,
-     dq and dk/dv must rise by exactly 6 * 8 * 3 = 144 each, and MoSA
-     attention's (serving) by 0; every loss and grad norm finite;
+     untimed — over the 3 timed steps the counters of the training forward
+     and the fused backward must rise by exactly 6 * 8 * 3 = 144 each, and
+     those of the split dq and dk/dv and of MoSA attention (serving) by 0;
+     every loss and grad norm finite;
   9. the card against the CPU for training at the same width and weights:
      batch 1 x 256 tokens, one loss and backward — identical selections
      in every layer first, then the loss within 1e-5 relative and every
@@ -172,18 +178,31 @@ def max_err(torch, got, want, atol, rtol):
     return err.max().item()
 
 
-def check_case(torch, kernel, plain, name, case, errs, parts=None):
+def check_case(torch, kernel, plain, name, case, errs, parts=None,
+               zeros=()):
     """Runs ``kernel`` in fp32 and bf16 against ``plain`` in fp32 on the
     same (rounded) inputs; records the fp32 error of the slice's case.
     With ``parts``, both return a tuple of outputs, each checked and
-    recorded as ``name.part``."""
+    recorded as ``name.part``.  The parts named in ``zeros`` are zero in
+    exact arithmetic on this case (dq and dk at S = 1, where a softmax over
+    one key passes no gradient to its score): in both dtypes the kernel's
+    output and the plain version's must each lie within ``FP32_TOL`` of
+    zero, since both are fp32 rounding noise."""
     labels = [name] if parts is None else [f"{name}.{p}" for p in parts]
+    zero_labels = {f"{name}.{p}" for p in zeros}
     for dt in (torch.float32, torch.bfloat16):
         got, want = kernel(dt), plain(dt)
         if parts is None:
             got, want = (got,), (want,)
         torch.cuda.synchronize()
         for label, g, w in zip(labels, got, want):
+            if label in zero_labels:
+                atol, rtol = FP32_TOL, 0.0
+                max_err(torch, w, torch.zeros_like(w), atol, rtol)
+                e = max_err(torch, g, torch.zeros_like(g), atol, rtol)
+                log(f"  {label:31s} {case:40s} {str(dt):15s} max|out| "
+                    f"{e:.3e} (zero in exact arithmetic; atol {atol:.2e})")
+                continue
             atol, rtol = ((FP32_TOL, FP32_TOL) if dt == torch.float32
                           else bf16_tol(w))
             e = max_err(torch, g, w, atol, rtol)
@@ -241,17 +260,25 @@ MOSA_CASES = {
         B=2, H=3, S=37, d=64, T=200, neg_keys=20, zero_rows=10,
         with_seg=True),
     "two query tiles, d=80": dict(B=1, H=2, S=70, d=80, T=300, neg_keys=5),
+    # boundaries of the fused backward (S <= 64 in one tile)
+    "S=1": dict(B=2, H=3, S=1, d=64, T=10),
+    "S=64 d=128, seg (largest smem)": dict(
+        B=1, H=3, S=64, d=128, T=300, neg_keys=4, zero_rows=3,
+        with_seg=True),
+    "S=64 d=32, idx=-1 keys": dict(B=2, H=2, S=64, d=32, T=300, neg_keys=12),
 }
 
 
 def check_train_kernels(torch, dev, gen, errs):
-    """The training forward, the two backward kernels (on the same g~, lse
-    and delta as their plain version) and the autograd Function end to end
-    (grads of sum(out * g) for q, k, v and r against autograd of
-    ``mosa_attention_ref``)."""
+    """The training forward, the backward kernels (on the same g~, lse and
+    delta as their plain version: the fused kernel on every case with S <=
+    64, two of its launches bitwise equal; the split #3 and #4, called
+    directly, on every case) and the autograd Function end to end (grads of
+    sum(out * g) for q, k, v and r against autograd of
+    ``mosa_attention_ref``; the fused route at S <= 64, the split route
+    above)."""
     from repro_torch.kernels import mosa_attention as kmosa
-    from repro_torch.kernels.mosa_backward import (mosa_attention_bwd_cuda,
-                                                   mosa_attention_bwd_ref)
+    from repro_torch.kernels import mosa_backward as kbwd
     for case, kw in MOSA_CASES.items():
         q, k, v, idx, r, seg = mosa_inputs(torch, dev=dev, gen=gen, **kw)
         g = torch.randn(q.shape, device=dev, generator=gen)
@@ -271,10 +298,33 @@ def check_train_kernels(torch, dev, gen, errs):
             delta = (gt * o_pre).sum(-1).contiguous()
             return fn(qq, kk, vv, idx, gt, lse, delta, seg=seg)
 
-        check_case(
-            torch, lambda dt: bwd(mosa_attention_bwd_cuda, dt, lambda t: t),
-            lambda dt: bwd(mosa_attention_bwd_ref, dt, lambda t: t.float()),
-            "mosa_attention_bwd", case, errs, ("dq", "dk", "dv"))
+        def split(*args, **opts):
+            return ((kbwd.mosa_attention_bwd_dq_cuda(*args, **opts),)
+                    + kbwd.mosa_attention_bwd_dkv_cuda(*args, **opts))
+
+        def plain(dt):
+            return bwd(kbwd.mosa_attention_bwd_ref, dt, lambda t: t.float())
+
+        fused = kbwd.fused_bwd_fits(kw["S"], kw["d"])
+        zeros = ("dq", "dk") if kw["S"] == 1 else ()
+        if fused:
+            check_case(
+                torch, lambda dt: bwd(kbwd.mosa_attention_bwd_fused_cuda, dt,
+                                      lambda t: t),
+                plain, "mosa_attention_bwd", case, errs, ("dq", "dk", "dv"),
+                zeros)
+            for dt in (torch.float32, torch.bfloat16):
+                first, again = (bwd(kbwd.mosa_attention_bwd_fused_cuda, dt,
+                                    lambda t: t) for _ in range(2))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"fused backward not deterministic "
+                                         f"on {case} in {dt}")
+            log(f"  {'mosa_attention_bwd':31s} {case:40s} two launches "
+                "bitwise equal (fp32, bf16)")
+        check_case(torch, lambda dt: bwd(split, dt, lambda t: t), plain,
+                   "mosa_attention_bwd_split", case, errs, ("dq", "dk", "dv"),
+                   zeros)
 
         def function_grads(dt, plain):
             # a bf16 output's cotangent arrives in bf16: the plain version
@@ -287,16 +337,25 @@ def check_train_kernels(torch, dev, gen, errs):
             gg = g.to(dt).float() if plain else g
             return torch.autograd.grad((out.float() * gg).sum(), leaves)
 
+        counters = (kbwd.LAUNCHES, kbwd.LAUNCHES_DQ, kbwd.LAUNCHES_DKV)
+        before = [c.count for c in counters]
         check_case(torch, lambda dt: function_grads(dt, False),
                    lambda dt: function_grads(dt, True),
                    "mosa_attention_function", case, errs,
-                   ("dq", "dk", "dv", "dr"))
+                   ("dq", "dk", "dv", "dr"), zeros)
+        # one backward per dtype, through the route this case's S takes
+        route = [c.count - b for c, b in zip(counters, before)]
+        if route != ([2, 0, 0] if fused else [0, 2, 2]):
+            raise AssertionError(f"the Function's backward on {case} took "
+                                 f"{route} launches of (fused, dq, dkv)")
     # the error of each kernel's row in the kernels JSON
     errs["mosa_attention_fwd_res"] = max(errs["mosa_attention_fwd_res.o_pre"],
                                          errs["mosa_attention_fwd_res.lse"])
-    errs["mosa_attention_bwd_dq"] = errs["mosa_attention_bwd.dq"]
-    errs["mosa_attention_bwd_dkv"] = max(errs["mosa_attention_bwd.dk"],
-                                         errs["mosa_attention_bwd.dv"])
+    errs["mosa_attention_bwd"] = max(errs[f"mosa_attention_bwd.{p}"]
+                                     for p in ("dq", "dk", "dv"))
+    errs["mosa_attention_bwd_dq"] = errs["mosa_attention_bwd_split.dq"]
+    errs["mosa_attention_bwd_dkv"] = max(errs["mosa_attention_bwd_split.dk"],
+                                         errs["mosa_attention_bwd_split.dv"])
 
 
 # Block choice (#5-#8): the slice's shape (B*H = 2208, NB 2, bs 16, S 32,
@@ -764,15 +823,17 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     input read once, each output written once; operations: 2*d per product
     of two d-vectors over the valid (query, key) pairs of this run's
     indices.  The plain versions compute dq, dk and dv in one call, and the
-    yardstick of #3 and #4 is one call of SDPA's backward, which computes
-    all three too: both numbers stand in each of the two rows, to compare
-    with the sum of the two kernels."""
+    yardstick of the backward is one call of SDPA's backward, which
+    computes all three too: both numbers stand in the fused kernel's row
+    and in each of the split #3 and #4 rows (compare those with the sum of
+    the two).  Also timed and logged: the Function's backward prologue
+    (g~, dr, delta; ``kernels/mosa_vjp.py``) on its own."""
     import torch.nn.functional as F
     from repro_torch.kernels.mosa_attention import (
         mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref)
     from repro_torch.kernels.mosa_backward import (
         mosa_attention_bwd_dkv_cuda, mosa_attention_bwd_dq_cuda,
-        mosa_attention_bwd_ref)
+        mosa_attention_bwd_fused_cuda, mosa_attention_bwd_ref)
     B, H, S, d = q.shape
     vec, row = B * H * S * d * 4, B * H * S * 4      # fp32 (.., d) / (..)
     o_pre, lse = mosa_attention_fwd_res_cuda(q, k, v, idx)
@@ -787,7 +848,22 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
     sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
         sdpa, leaves, g, retain_graph=True), flush=flush)
+
+    def prologue():       # MoSAAttentionFunction.backward before the kernel
+        gt = (g * r[..., None]).contiguous()
+        dr = (g * o_pre).sum(-1)
+        return gt, dr, (gt * o_pre).sum(-1).contiguous()
+
+    prologue_ms = time_ms(torch, prologue, flush=flush)
+    log(f"  the Function's backward prologue (g~, dr, delta): "
+        f"{prologue_ms:.4f} ms")
     return {
+        "mosa_attention_bwd": dict(
+            ms=time_ms(torch, lambda: mosa_attention_bwd_fused_cuda(
+                *bwd_args), flush=flush),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            bytes=7 * vec + 3 * row, flops=10 * pairs * d,
+            prologue_ms=prologue_ms),
         "mosa_attention_fwd_res": dict(
             ms=time_ms(torch, lambda: mosa_attention_fwd_res_cuda(
                 q, k, v, idx), flush=flush),
@@ -817,7 +893,8 @@ def kernel_counters():
     from repro_torch.kernels import mosa_block as kblock
     from repro_torch.serve import paged_attention as kpaged
     return {c.name: c for c in (kmosa.LAUNCHES, kmosa.LAUNCHES_FWD_RES,
-                                kbwd.LAUNCHES_DQ, kbwd.LAUNCHES_DKV,
+                                kbwd.LAUNCHES, kbwd.LAUNCHES_DQ,
+                                kbwd.LAUNCHES_DKV,
                                 kblock.LAUNCHES, kblock.LAUNCHES_FWD_RES,
                                 kblock.LAUNCHES_DQ, kblock.LAUNCHES_DKV,
                                 kflash.LAUNCHES, kflash.LAUNCHES_VARLEN,
@@ -1060,10 +1137,12 @@ def train_slice(torch, **mosa):
 
     timed = TRAIN_STEPS - 1
     per_layer = mc.n_layers * cfg.microbatch * timed
-    pre = ("mosa_block_attention" if mc.mosa.selection_granularity == "block"
-           else "mosa_attention")
-    want = want_launches(**{f"{pre}_{k}": per_layer
-                            for k in ("fwd_res", "bwd_dq", "bwd_dkv")})
+    # token choice at S = k = 32: the fused backward; block choice: #6-#8
+    names = (("mosa_block_attention_fwd_res", "mosa_block_attention_bwd_dq",
+              "mosa_block_attention_bwd_dkv")
+             if mc.mosa.selection_granularity == "block"
+             else ("mosa_attention_fwd_res", "mosa_attention_bwd"))
+    want = want_launches(**{name: per_layer for name in names})
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     losses = [h["loss"] for h in history]
@@ -1998,6 +2077,9 @@ def main():
     log("[8] main path: training at full width")
     trainer, train = train_slice(torch)
 
+    train["fused_bwd"] = {k: times["mosa_attention_bwd"][k] for k in (
+        "ms", "prologue_ms", "bound_ms", "library_ms")}
+
     log("[9] card vs CPU for training at full width")
     train["cross_check"] = train_cross_check(torch, trainer)
 
@@ -2063,6 +2145,9 @@ def main():
                            "src/repro/kernels/mosa_attention.py:55"),
         "mosa_attention_fwd_res": ("src/repro_torch/csrc/mosa_attention.cu",
                                    "src/repro/kernels/mosa_attention.py:110"),
+        "mosa_attention_bwd": ("src/repro_torch/csrc/mosa_backward.cu",
+                               "src/repro/kernels/mosa_backward.py:49, "
+                               "src/repro/kernels/mosa_backward.py:100"),
         "mosa_attention_bwd_dq": ("src/repro_torch/csrc/mosa_backward.cu",
                                   "src/repro/kernels/mosa_backward.py:49"),
         "mosa_attention_bwd_dkv": ("src/repro_torch/csrc/mosa_backward.cu",

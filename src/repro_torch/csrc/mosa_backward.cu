@@ -47,6 +47,56 @@
 // rows arrive with g~ = 0 and delta = 0 (the wrapper zeroes them), so their
 // dS and their share of dV vanish term by term.  At bs = 1 both kernels
 // compute what the token kernels do, bit for bit.
+//
+// Fused token-choice backward (`mosa_bwd_fused_kernel`, S <= 64): the
+// training path's form of #3 + #4.  When a row's S selected tokens fit one
+// tile, one block holds the whole row, so dq needs no key outside the block
+// and one block can produce dq, dk and dv with no atomics.  The two split
+// kernels above each recompute S = q.k^T and dP = g~.v^T and each read q,
+// k, v and g~ from device memory (7 S x S x d products where 5 are needed),
+// and both are bound by shared-memory instructions: one scalar load pair
+// per FMA pair in the pair dots and a read-modify-write of a shared
+// accumulator per output.  The fused kernel:
+//
+//   * stages the row's q, k, v (in their dtype) and g~ (fp32) in shared
+//     memory with cp.async 16-byte copies (cp.async.cg.shared.global; 4-byte
+//     copies for lse, delta, idx and seg), rows at a padded stride of
+//     d + 16 bytes' worth of elements, which keeps 16-byte alignment and
+//     spreads neighbouring rows over the banks.  The copy is a pure copy:
+//     q is not pre-scaled, the scale multiplies each score and dK instead;
+//   * phase A: S and dP as register-tiled products, each thread a 2 x 4
+//     micro-tile of both (queries i0, i0+1; keys j0 + m * Sp/4, strided so
+//     the 8 key rows a warp reads lie on distinct banks), 16-byte operand
+//     loads, 5.3 FMAs per load instruction; P = exp(scale * s - lse) and
+//     dS = P * (dP - delta) under the explicit mask, into shared memory as
+//     P, dS and dS^T (Sp x (Sp + 4) floats each);
+//   * phase B: dQ = scale * dS k, dK = scale * dS^T q, dV = P^T g~ as
+//     register-tiled S x d products, each thread a 4 x 4 micro-tile of all
+//     three (48 accumulators, 8 FMAs per 16-byte load instruction), each
+//     output element written once, straight from registers to device
+//     memory with 16-byte stores (8-byte for bf16);
+//   * one block per row (~49 KB of shared memory at the slice, so 4 blocks
+//     of 4 warps per SM; registers allow 5): the resident blocks overlap one
+//     another's copies with their compute.  A persistent form (occupancy x
+//     SMs blocks walking over rows, the next row's copies in flight in a
+//     second stage) kept only 2 blocks per SM at the slice and measured
+//     4-12% slower on the H100 (PERF.md), so it is not kept.
+//
+// Bound on an H100 at the slice (2208 rows, S = 32, d = 64, fp32): 10 *
+// pairs * d ~ 0.75 GFLOP of valid work, ~0.011 ms at 67 TFLOP/s, against
+// ~127 MB moved (q, k, v, g~ read, dq, dk, dv written), ~0.038 ms at 3.35
+// TB/s: bound by bytes.  Tensor cores are not used: fp32 inputs would need
+// TF32, whose ~3 decimal digits break the 2e-5 fp32 tolerance, and the
+// CUDA cores' operations bound is already below the byte bound; bf16 inputs
+// are widened to fp32 as they are read from shared memory.  The reduction
+// order is fixed, so the result is deterministic run to run.  Any d <= 128
+// and any 1 <= S <= 64 are taken without padding in device memory: padded
+// rows and columns of the staged tiles are zeros, and masked or padded
+// pairs give P = dS = 0 by selection (never by multiplying a NaN).  Rows
+// whose d (or whose pointers) do not allow 16-byte copies are staged with
+// plain loads.  On the H100 the kernel runs at about twice the byte bound:
+// within a block a row's copies and its compute do not overlap, and the
+// resident blocks hide only part of that (PERF.md).
 
 #include <stdint.h>
 
@@ -375,6 +425,357 @@ int dkv_dtype(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ------------------------------------------------- fused dq, dk, dv (S <= 64)
+constexpr int kFusedThreads = 128;
+constexpr int kFusedMaxS = 64;
+constexpr int kMaxD = 128;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four consecutive shared-memory elements, widened to float: one 16-byte
+// load (fp32) or one 8-byte load (bf16).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Four consecutive outputs in one store: 16 bytes (fp32) or 8 (bf16).
+__device__ __forceinline__ void st4(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float* x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Shared-memory layout of the fused kernel for one (S, d, element size).
+// Sp = S rounded up to 4, dpad = d rounded up to 4 (the width the products
+// run over), row strides of 16 bytes' worth of elements past the rounded
+// width; ps = the row stride of P, dS and dS^T.
+struct FusedLayout {
+  int Sp, dpad, dsT, dsF, ps;
+  size_t stage_bytes, scratch_bytes;
+};
+
+__host__ __device__ inline FusedLayout fused_layout(int S, int d, int tsize) {
+  FusedLayout L;
+  const int vT = 16 / tsize;
+  L.Sp = (S + 3) / 4 * 4;
+  L.dpad = (d + 3) / 4 * 4;
+  L.dsT = (d + vT - 1) / vT * vT + vT;
+  L.dsF = L.dpad + 4;
+  L.ps = L.Sp + 4;
+  L.stage_bytes = static_cast<size_t>(L.Sp) *
+                  (3 * L.dsT * tsize + L.dsF * 4 + 4 * 4);
+  L.scratch_bytes = 3 * sizeof(float) * static_cast<size_t>(L.Sp) * L.ps;
+  return L;
+}
+
+// The staged row: q, k, v [Sp][dsT] (dtype T), g~ [Sp][dsF], lse,
+// delta, idx and seg [Sp].
+template <typename T>
+struct Stage {
+  T *q, *k, *v;
+  float *g, *lse, *delta;
+  int *idx, *seg;
+
+  __device__ Stage(unsigned char* base, const FusedLayout& L) {
+    const size_t n = static_cast<size_t>(L.Sp) * L.dsT;
+    q = reinterpret_cast<T*>(base);
+    k = q + n;
+    v = k + n;
+    g = reinterpret_cast<float*>(v + n);
+    lse = g + static_cast<size_t>(L.Sp) * L.dsF;
+    delta = lse + L.Sp;
+    idx = reinterpret_cast<int*>(delta + L.Sp);
+    seg = idx + L.Sp;
+  }
+};
+
+// Start the copies of row `row` into `st` (16-byte cp.async when `vec`,
+// else plain loads), uncommitted.
+template <typename T>
+__device__ void fetch_row(const Stage<T>& st, const FusedLayout& L,
+                          const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ gt,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ idx,
+                          const int* __restrict__ seg, size_t row, int S,
+                          int d, bool vec) {
+  const size_t base = row * S;
+  const T* qb = q + base * d;
+  const T* kb = k + base * d;
+  const T* vb = v + base * d;
+  const float* gb = gt + base * d;
+  if (vec) {
+    constexpr int kV = 16 / sizeof(T);
+    const int cpr = d / kV;
+    for (int i = threadIdx.x; i < S * cpr; i += kFusedThreads) {
+      const int r = i / cpr;
+      const int c = (i - r * cpr) * kV;
+      cp_async16(st.q + r * L.dsT + c, qb + r * d + c);
+      cp_async16(st.k + r * L.dsT + c, kb + r * d + c);
+      cp_async16(st.v + r * L.dsT + c, vb + r * d + c);
+    }
+    const int cprf = d / 4;
+    for (int i = threadIdx.x; i < S * cprf; i += kFusedThreads) {
+      const int r = i / cprf;
+      const int c = (i - r * cprf) * 4;
+      cp_async16(st.g + r * L.dsF + c, gb + r * d + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < S * d; i += kFusedThreads) {
+      const int r = i / d;
+      const int c = i - r * d;
+      st.q[r * L.dsT + c] = qb[i];
+      st.k[r * L.dsT + c] = kb[i];
+      st.v[r * L.dsT + c] = vb[i];
+      st.g[r * L.dsF + c] = gb[i];
+    }
+  }
+  for (int i = threadIdx.x; i < S; i += kFusedThreads) {
+    cp_async4(st.lse + i, lse + base + i);
+    cp_async4(st.delta + i, delta + base + i);
+    cp_async4(st.idx + i, idx + base + i);
+    if (seg) cp_async4(st.seg + i, seg + base + i);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFusedThreads)
+mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ idx,
+                      const int* __restrict__ seg,
+                      const float* __restrict__ gt,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dq,
+                      T* __restrict__ dk, T* __restrict__ dv, int S, int d,
+                      float scale, bool vec) {
+  extern __shared__ float4 fused_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(fused_smem);
+  const FusedLayout L = fused_layout(S, d, sizeof(T));
+  const Stage<T> st(smem, L);
+  float* P = reinterpret_cast<float*>(smem + L.stage_bytes);
+  float* dS = P + L.Sp * L.ps;
+  float* dSt = dS + L.Sp * L.ps;
+  const int nkg = L.Sp / 4;  // groups of 4 keys (phase A), of 4 rows (B)
+  const int nqg = L.Sp / 2;  // pairs of queries (phase A)
+  const int ncg = L.dpad / 4;  // groups of 4 columns (phase B)
+  const int row = blockIdx.x;
+
+  // Start the row's copies, then zero the padding (rows S..Sp-1, columns
+  // d..dpad-1), which the copies never write.  Without seg every key is in
+  // segment 0.
+  fetch_row(st, L, q, k, v, gt, lse, delta, idx, seg, row, S, d, vec);
+  cp_async_commit();
+  if (S < L.Sp || d < L.dpad) {
+    for (int i = threadIdx.x; i < L.Sp * L.dpad; i += kFusedThreads) {
+      const int r = i / L.dpad;
+      const int c = i - r * L.dpad;
+      if (r >= S || c >= d) {
+        store_as(st.q + r * L.dsT + c, 0.f);
+        store_as(st.k + r * L.dsT + c, 0.f);
+        store_as(st.v + r * L.dsT + c, 0.f);
+        st.g[r * L.dsF + c] = 0.f;
+      }
+    }
+  }
+  if (!seg)
+    for (int i = threadIdx.x; i < L.Sp; i += kFusedThreads) st.seg[i] = 0;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Phase A: S and dP, a 2 x 4 micro-tile of each per thread.
+  for (int t = threadIdx.x; t < nqg * nkg; t += kFusedThreads) {
+    const int i0 = (t / nkg) * 2;
+    const int j0 = t % nkg;
+    float s[2][4] = {}, dp[2][4] = {};
+    for (int c = 0; c < L.dpad; c += 4) {
+      float4 qa[2], ga[2], kb[4], vb[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        qa[r] = ld4(st.q + (i0 + r) * L.dsT + c);
+        ga[r] = ld4(st.g + (i0 + r) * L.dsF + c);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        kb[m] = ld4(st.k + (j0 + m * nkg) * L.dsT + c);
+        vb[m] = ld4(st.v + (j0 + m * nkg) * L.dsT + c);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          s[r][m] = dot4(qa[r], kb[m], s[r][m]);
+          dp[r][m] = dot4(ga[r], vb[m], dp[r][m]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + r;
+      const bool q_ok = i < S;
+      const int iq = q_ok ? st.idx[i] : -1;
+      const int sq = q_ok ? st.seg[i] : 0;
+      const float lse_i = q_ok ? st.lse[i] : 0.f;
+      const float delta_i = q_ok ? st.delta[i] : 0.f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int j = j0 + m * nkg;
+        const bool ok =
+            q_ok && j < S && pair_ok(iq, sq, st.idx[j], st.seg[j]);
+        const float p = ok ? expf(s[r][m] * scale - lse_i) : 0.f;
+        const float ds = ok ? p * (dp[r][m] - delta_i) : 0.f;
+        P[i * L.ps + j] = p;
+        dS[i * L.ps + j] = ds;
+        dSt[j * L.ps + i] = ds;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Phase B: dQ, dK and dV, a 4 x 4 micro-tile of each per thread.
+  const size_t base = static_cast<size_t>(row) * S;
+  for (int t = threadIdx.x; t < nkg * ncg; t += kFusedThreads) {
+    const int r0 = (t / ncg) * 4;
+    const int c0 = (t % ncg) * 4;
+    float aq[4][4] = {}, ak[4][4] = {}, av[4][4] = {};
+    for (int u = 0; u < S; ++u) {
+      const float4 dst4 = ld4(dSt + u * L.ps + r0);  // dS[r0 + a][u]
+      const float4 ds4 = ld4(dS + u * L.ps + r0);    // dS[u][r0 + a]
+      const float4 p4 = ld4(P + u * L.ps + r0);      // P[u][r0 + a]
+      const float4 k4 = ld4(st.k + u * L.dsT + c0);
+      const float4 q4 = ld4(st.q + u * L.dsT + c0);
+      const float4 g4 = ld4(st.g + u * L.dsF + c0);
+      const float a_q[4] = {dst4.x, dst4.y, dst4.z, dst4.w};
+      const float a_k[4] = {ds4.x, ds4.y, ds4.z, ds4.w};
+      const float a_v[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float b_q[4] = {k4.x, k4.y, k4.z, k4.w};
+      const float b_k[4] = {q4.x, q4.y, q4.z, q4.w};
+      const float b_v[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          aq[a][b] = fmaf(a_q[a], b_q[b], aq[a][b]);
+          ak[a][b] = fmaf(a_k[a], b_k[b], ak[a][b]);
+          av[a][b] = fmaf(a_v[a], b_v[b], av[a][b]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = r0 + a;
+      if (r < S) {
+        float out_q[4], out_k[4], out_v[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          out_q[b] = aq[a][b] * scale;
+          out_k[b] = ak[a][b] * scale;
+          out_v[b] = av[a][b];
+        }
+        T* pq = dq + (base + r) * d + c0;
+        T* pk = dk + (base + r) * d + c0;
+        T* pv = dv + (base + r) * d + c0;
+        if (vec && c0 + 4 <= d) {
+          st4(pq, out_q);
+          st4(pk, out_k);
+          st4(pv, out_v);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (c0 + b < d) {
+              store_as(pq + b, out_q[b]);
+              store_as(pk + b, out_k[b]);
+              store_as(pv + b, out_v[b]);
+            }
+        }
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One block per row.
+template <typename T>
+int launch_fused(const void* q, const void* k, const void* v, const void* idx,
+                 const void* seg, const void* gt, const void* lse,
+                 const void* delta, void* dq, void* dk, void* dv, int BH,
+                 int S, int d, float scale, cudaStream_t stream) {
+  if (S < 1 || S > kFusedMaxS || d < 1 || d > kMaxD || BH < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (BH == 0) return static_cast<int>(cudaSuccess);
+  const FusedLayout L = fused_layout(S, d, sizeof(T));
+  const size_t smem = L.stage_bytes + L.scratch_bytes;
+  const bool vec = d % (16 / sizeof(T)) == 0 && aligned16(q) &&
+                   aligned16(k) && aligned16(v) && aligned16(gt) &&
+                   aligned16(dq) && aligned16(dk) && aligned16(dv);
+  const cudaError_t err = allow_smem(mosa_bwd_fused_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mosa_bwd_fused_kernel<T><<<BH, kFusedThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(idx),
+      static_cast<const int*>(seg), static_cast<const float*>(gt),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), S, d,
+      scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fused_dtype(int dtype, const void* q, const void* k, const void* v,
+                const void* idx, const void* seg, const void* gt,
+                const void* lse, const void* delta, void* dq, void* dk,
+                void* dv, int BH, int S, int d, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch_fused<float>(q, k, v, idx, seg, gt, lse, delta, dq, dk, dv,
+                               BH, S, d, scale, st);
+  if (dtype == kBFloat16)
+    return launch_fused<__nv_bfloat16>(q, k, v, idx, seg, gt, lse, delta, dq,
+                                       dk, dv, BH, S, d, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Both entry points: q, k, v (and dq, dk, dv): (BH, S, d) contiguous in
@@ -402,6 +803,20 @@ extern "C" int repro_mosa_attention_bwd_dkv(const void* q, const void* k,
                                             void* stream) {
   return dkv_dtype<false>(dtype, q, k, v, idx, seg, gt, lse, delta, dk, dv,
                           BH, S, d, scale, 1, 0, stream);
+}
+
+// The fused backward (token choice, S <= 64, d <= 128): inputs as above,
+// dq, dk, dv (BH, S, d) in `dtype`, all three from one launch.  Returns
+// cudaErrorInvalidValue for S > 64 or d > 128, else cudaGetLastError().
+extern "C" int repro_mosa_attention_bwd(const void* q, const void* k,
+                                        const void* v, const void* idx,
+                                        const void* seg, const void* gt,
+                                        const void* lse, const void* delta,
+                                        void* dq, void* dk, void* dv, int BH,
+                                        int S, int d, float scale, int dtype,
+                                        void* stream) {
+  return fused_dtype(dtype, q, k, v, idx, seg, gt, lse, delta, dq, dk, dv, BH,
+                     S, d, scale, stream);
 }
 
 // Block choice (kernels #7 and #8): as above with S = NB * bs, bidx (BH,

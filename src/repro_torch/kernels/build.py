@@ -44,6 +44,7 @@ SIGNATURES = {
     "repro_mosa_attention_fwd_res": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dkv": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_bwd": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_block_attention": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_fwd_res": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],

@@ -17,9 +17,14 @@ exp(-1e30 - lse) is not ~0.
 
   * ``mosa_attention_bwd_ref``  — the math above in plain PyTorch (not
     autograd), so the card can check dq, dk and dv one by one;
+  * ``mosa_attention_bwd_fused_cuda`` — the fused hand-written CUDA kernel
+    (``csrc/mosa_backward.cu``, ``mosa_bwd_fused_kernel``): dq, dk and dv in
+    one launch when a row's S selected tokens fit one tile
+    (``fused_bwd_fits``: S <= 64, d <= 128);
   * ``mosa_attention_bwd_dq_cuda`` / ``mosa_attention_bwd_dkv_cuda`` — the
-    two hand-written CUDA kernels (``csrc/mosa_backward.cu``), each with its
-    launch counter; ``mosa_attention_bwd_cuda`` runs both;
+    two split CUDA kernels (any S), each with its launch counter;
+  * ``mosa_attention_bwd_cuda`` — the fused kernel where it fits, the two
+    split kernels otherwise;
   * ``mosa_attention_bwd`` — the kernels for CUDA tensors, the plain
     version for CPU tensors.
 
@@ -32,11 +37,19 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
                                       check_launch, check_tensor, library)
-from repro_torch.kernels.mosa_attention import (check_mosa_inputs, data_ptr,
-                                                pair_mask, wide)
+from repro_torch.kernels.mosa_attention import (MAX_D, check_mosa_inputs,
+                                                data_ptr, pair_mask, wide)
 
+LAUNCHES = LaunchCounter("mosa_attention_bwd")
 LAUNCHES_DQ = LaunchCounter("mosa_attention_bwd_dq")
 LAUNCHES_DKV = LaunchCounter("mosa_attention_bwd_dkv")
+FUSED_MAX_S = 64
+
+
+def fused_bwd_fits(S, d):
+    """Whether the fused kernel takes a row of S selected tokens of width d:
+    the whole row must fit one tile."""
+    return 1 <= S <= FUSED_MAX_S and 1 <= d <= MAX_D
 
 
 def mosa_attention_bwd_ref(q, k, v, idx, gt, lse, delta, scale=None,
@@ -111,9 +124,37 @@ def mosa_attention_bwd_dkv_cuda(q, k, v, idx, gt, lse, delta, scale=None,
     return dk, dv
 
 
+def mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta, scale=None,
+                                  seg=None):
+    """The fused kernel (#3 + #4 in one launch, one block per row): (dq, dk,
+    dv).  Inputs as ``mosa_attention_bwd_dq_cuda``, with
+    ``fused_bwd_fits(S, d)``.  Raises on anything else."""
+    B, H, S, d = _check_bwd("mosa_attention_bwd_fused_cuda", q, k, v, idx,
+                            seg, gt, lse, delta)
+    if not fused_bwd_fits(S, d):
+        raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
+                         f"d <= {MAX_D}, got S={S}, d={d}")
+    scale = float(scale if scale is not None else d ** -0.5)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = library().lib.repro_mosa_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
+            data_ptr(seg), gt.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, d, scale,
+            DTYPE_CODE[q.dtype], stream)
+    check_launch(rc, "mosa_attention_bwd")
+    LAUNCHES.count += 1
+    return dq, dk, dv
+
+
 def mosa_attention_bwd_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                             seg=None):
-    """Kernels #3 and #4: (dq, dk, dv)."""
+    """(dq, dk, dv): the fused kernel where ``fused_bwd_fits``, else the
+    split kernels #3 and #4."""
+    if fused_bwd_fits(q.shape[-2], q.shape[-1]):
+        return mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta,
+                                             scale, seg)
     dq = mosa_attention_bwd_dq_cuda(q, k, v, idx, gt, lse, delta, scale, seg)
     dk, dv = mosa_attention_bwd_dkv_cuda(q, k, v, idx, gt, lse, delta, scale,
                                          seg)

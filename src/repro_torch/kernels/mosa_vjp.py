@@ -1,20 +1,23 @@
 """The differentiable MoSA inner attention: one ``torch.autograd.Function``
-around the training forward and the two backward kernels (the counterpart
+around the training forward and the backward kernels (the counterpart
 of ``_build`` in ``repro/kernels/mosa_vjp.py``).
 
 Forward: ``o_pre, lse = mosa_attention_fwd_res(q, k, v, idx, seg)`` (kernel
 #2 on the card), then ``out = (o_pre * r).to(q.dtype)``; q, k, v, idx, seg,
 r, o_pre and lse are saved.
 
-Backward, with the cheap O(S*d) reductions kept out of the kernels:
+Backward, with the O(S*d) reductions kept out of the kernels (at the
+training slice they take longer than the fused backward kernel itself;
+PERF.md):
 
   g~    = r * g                  (router scaling of the cotangent)
   dr    = rowsum(g * o_pre)      (router-score gradient: through it the
                                   router weights learn expert choice)
   delta = rowsum(g~ * o_pre)     (the softmax correction term)
 
-then ``mosa_attention_bwd`` (kernels #3 and #4 on the card) gives dq, dk
-and dv.  idx and seg are integers and get no gradient.
+then ``mosa_attention_bwd`` gives dq, dk and dv: on the card the fused
+#3 + #4 kernel when a row fits one tile (S <= 64), the split #3 and #4
+otherwise.  idx and seg are integers and get no gradient.
 
 The kernels refuse tensors that require grad, and the tensors autograd
 hands the Function (inputs and ``saved_tensors`` alike) do, so every

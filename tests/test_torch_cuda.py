@@ -12,13 +12,18 @@ residuals, dq, dk/dv) and the autograd Function that joins them are held
 to the same tolerances at the slice's shape (8, 276, 32, 64) and at the
 edge cases: ragged S with idx = -1 keys, r = 0 rows and segments, and two
 query tiles with d = 80 and with d = 128 (the widest d the kernels take,
-and their largest shared-memory footprint).  The block-choice kernels
-(#5-#8) and their autograd Function are held to the same tolerances at the
-slice's shape and at the edge cases of ``BLOCK_CASES``; at bs = 1, #5 and
-#6 equal #1 and #2 bit for bit.  The flash kernels #9 and #10 are held to
-the same tolerances (GQA, q_offset, windows, ragged tiles, segments of
-length 1, a padding tail that must come back as zeros), and the window
-model is served on the card and the CPU with identical greedy tokens.
+and their largest shared-memory footprint).  The backward takes the fused
+kernel at S <= 64 and the split dq and dk/dv kernels above: the fused
+kernel is held to the plain version (also at S = 1 and at S = 64 with
+d = 128), to the split kernels, and to itself (two launches equal bit for
+bit); the counters show which route each case takes.  The block-choice
+kernels (#5-#8) and their autograd Function are held to the same
+tolerances at the slice's shape and at the edge cases of ``BLOCK_CASES``;
+at bs = 1, #5 and #6 equal #1 and #2 bit for bit.  The flash kernels #9
+and #10 are held to the same tolerances (GQA, q_offset, windows, ragged
+tiles, segments of length 1, a padding tail that must come back as
+zeros), and the window model is served on the card and the CPU with
+identical greedy tokens.
 """
 
 import pytest
@@ -156,28 +161,93 @@ def test_mosa_fwd_res_kernel_matches_plain(dev, dtype, case):
                                rtol=_tol(dtype))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", TRAIN_CASES)
-def test_mosa_bwd_kernels_match_plain(dev, dtype, case):
+def _bwd_inputs(dev, dtype, case):
+    """Kernel inputs of the backward (q, k, v in ``dtype``; g~, lse and
+    delta from the plain forward in fp32) and the plain version's grads."""
     from repro_torch.kernels.mosa_attention import mosa_attention_fwd_res_ref
-    from repro_torch.kernels.mosa_backward import (LAUNCHES_DKV, LAUNCHES_DQ,
-                                                   mosa_attention_bwd_cuda,
-                                                   mosa_attention_bwd_ref)
+    from repro_torch.kernels.mosa_backward import mosa_attention_bwd_ref
     q, k, v, idx, r, seg, gout = _train_inputs(dev, *case)
     q, k, v = (x.to(dtype) for x in (q, k, v))
     qf, kf, vf = q.float(), k.float(), v.float()
     o_pre, lse = mosa_attention_fwd_res_ref(qf, kf, vf, idx, seg=seg)
     gt = (gout * r[..., None]).contiguous()
     delta = (gt * o_pre).sum(-1).contiguous()
-    before = (LAUNCHES_DQ.count, LAUNCHES_DKV.count)
-    got = mosa_attention_bwd_cuda(q, k, v, idx, gt, lse, delta, seg=seg)
-    assert (LAUNCHES_DQ.count, LAUNCHES_DKV.count) == (before[0] + 1,
-                                                        before[1] + 1)
     want = mosa_attention_bwd_ref(qf, kf, vf, idx, gt, lse, delta, seg=seg)
+    return (q, k, v, idx, gt, lse, delta), seg, want
+
+
+def _bwd_route(S, d):
+    """Launches of (fused, dq, dk/dv) one backward takes at (S, d)."""
+    from repro_torch.kernels.mosa_backward import fused_bwd_fits
+    return (1, 0, 0) if fused_bwd_fits(S, d) else (0, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_mosa_bwd_kernels_match_plain(dev, dtype, case):
+    """``mosa_attention_bwd_cuda`` takes the fused kernel at S <= 64 and the
+    split #3 and #4 above; each case's counters show its route."""
+    from repro_torch.kernels.mosa_backward import (LAUNCHES, LAUNCHES_DKV,
+                                                   LAUNCHES_DQ,
+                                                   mosa_attention_bwd_cuda)
+    args, seg, want = _bwd_inputs(dev, dtype, case)
+    counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV)
+    before = [c.count for c in counters]
+    got = mosa_attention_bwd_cuda(*args, seg=seg)
+    assert tuple(c.count - b for c, b in zip(counters, before)) == \
+        _bwd_route(case[2], case[3])
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype, name
         torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
                                    rtol=_tol(dtype), msg=name)
+
+
+# The fused backward's cases: TRAIN_CASES with S <= 64, S = 1, and S = 64 at
+# d = 128 with segments (the largest shared-memory footprint).
+FUSED_CASES = [c for c in TRAIN_CASES if c[2] <= 64] + [
+    (2, 3, 1, 64, 10, 0, 0, False), (1, 3, 64, 128, 300, 4, 3, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_bwd_matches_plain_and_is_deterministic(dev, dtype, case):
+    """The fused kernel against the plain version; two launches equal bit
+    for bit (no atomics, a fixed order)."""
+    from repro_torch.kernels.mosa_backward import (
+        LAUNCHES, mosa_attention_bwd_fused_cuda)
+    args, seg, want = _bwd_inputs(dev, dtype, case)
+    before = LAUNCHES.count
+    got = mosa_attention_bwd_fused_cuda(*args, seg=seg)
+    again = mosa_attention_bwd_fused_cuda(*args, seg=seg)
+    assert LAUNCHES.count == before + 2
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype, name
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
+                                   rtol=_tol(dtype), msg=name)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_bwd_matches_split_kernels(dev, case):
+    """Fused against the split #3 and #4 on the card, fp32."""
+    from repro_torch.kernels.mosa_backward import (
+        mosa_attention_bwd_dkv_cuda, mosa_attention_bwd_dq_cuda,
+        mosa_attention_bwd_fused_cuda)
+    args, seg, _ = _bwd_inputs(dev, torch.float32, case)
+    got = mosa_attention_bwd_fused_cuda(*args, seg=seg)
+    split = ((mosa_attention_bwd_dq_cuda(*args, seg=seg),)
+             + mosa_attention_bwd_dkv_cuda(*args, seg=seg))
+    for name, a, b in zip(("dq", "dk", "dv"), got, split):
+        torch.testing.assert_close(a, b, atol=_tol(torch.float32),
+                                   rtol=_tol(torch.float32), msg=name)
+
+
+def test_fused_bwd_refuses_rows_past_one_tile(dev):
+    from repro_torch.kernels.mosa_backward import (
+        mosa_attention_bwd_fused_cuda)
+    args, seg, _ = _bwd_inputs(dev, torch.float32, TRAIN_CASES[2])
+    with pytest.raises(ValueError, match="S <= 64"):
+        mosa_attention_bwd_fused_cuda(*args, seg=seg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -188,16 +258,18 @@ def test_mosa_autograd_function_matches_autograd_of_plain(dev, dtype, case):
     output's cotangent arrives in bf16, so the plain version is given the
     same bf16-rounded g."""
     from repro_torch.kernels import mosa_attention as kmosa
-    from repro_torch.kernels.mosa_backward import LAUNCHES_DKV, LAUNCHES_DQ
+    from repro_torch.kernels.mosa_backward import (LAUNCHES, LAUNCHES_DKV,
+                                                   LAUNCHES_DQ)
     q, k, v, idx, r, seg, gout = _train_inputs(dev, *case)
     q, k, v = (x.to(dtype) for x in (q, k, v))
     leaves = [x.clone().requires_grad_() for x in (q, k, v, r)]
-    counters = (kmosa.LAUNCHES, kmosa.LAUNCHES_FWD_RES, LAUNCHES_DQ,
-                LAUNCHES_DKV)
+    counters = (kmosa.LAUNCHES, kmosa.LAUNCHES_FWD_RES, LAUNCHES,
+                LAUNCHES_DQ, LAUNCHES_DKV)
     before = [c.count for c in counters]
     out = kmosa.mosa_attention(*leaves[:3], idx, leaves[3], seg=seg)
     got = torch.autograd.grad((out.float() * gout).sum(), leaves)
-    assert [c.count - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
+    assert tuple(c.count - b for c, b in zip(counters, before)) == \
+        (0, 1) + _bwd_route(case[2], case[3])
     ref = [x.detach().float().requires_grad_() for x in (q, k, v, r)]
     want_out = kmosa.mosa_attention_ref(*ref[:3], idx, ref[3], seg=seg)
     want = torch.autograd.grad((want_out * gout.to(dtype).float()).sum(), ref)
