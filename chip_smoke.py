@@ -18,7 +18,10 @@ Phases (any failure raises, so the script exits nonzero):
      joins them (grads of q, k, v and r against autograd of the plain
      version; the fused route at S <= 64, the split one above, checked by
      the counters), paged decode and packed paged
-     prefill (padding tokens and inactive segments exact zeros), and the
+     prefill (padding tokens and inactive segments exact zeros; cases
+     across its key splits of 128: pasts on, one before and one after a
+     split boundary, a token at the deepest position, prefix blocks shared
+     across a split, R = 3; two launches bitwise equal), and the
      four block-choice kernels (#5-#8) and their autograd Function at the
      block slice's shape and at edge cases (a ragged last block, empty
      blocks, two segments, d 32 and 128, bs 64), plus #5/#6 at bs = 1
@@ -27,7 +30,9 @@ Phases (any failure raises, so the script exits nonzero):
      and 128, segments of length 1, a padding tail that must be zeros);
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch); also the
-     autograd Function's backward prologue (g~, dr, delta) on its own;
+     autograd Function's backward prologue (g~, dr, delta) on its own, and
+     packed prefill at a second shape (one 256-token segment at past 768,
+     the Scheduler's full chunk, in the ``sched`` JSON's kernel_cases);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
@@ -157,6 +162,26 @@ def time_ms(torch, fn, iters=20, warmup=3, flush=None):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def device_ms_by_kernel(torch, fn, flush, names, iters=10):
+    """Mean device time per call (ms) of the kernels whose names contain
+    each of ``names``, from ``torch.profiler`` over ``iters`` calls of
+    ``fn``, each after an L2 flush."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        for name in names:
+            if name in ev.key:
+                out[name] += ev.device_time_total / 1e3 / iters
+    return out
 
 
 def bf16_tol(want):
@@ -513,8 +538,11 @@ def check_block_bs1(torch, dev, gen):
 PREFILL_SLICE_SEGS = [(0, 0, 64), (1, 256, 64), (2, 512, 64), (3, 960, 64)]
 PREFILL_EDGE_SEGS = [(0, 0, 5), (1, 13, 3), (2, 7, 1), (-1, 0, 4),
                      (3, 9, 6)]
+PREFILL_SLICE = "slice 256 tok/4 segs, pasts 0-960 d=64"
+# the last 256-token chunk of a 1024-token prompt (one segment)
+PREFILL_FULL_CHUNK = "1 seg 256 tok, past 768 d=64"
 PREFILL_CASES = {
-    "slice 256 tok/4 segs, pasts 0-960 d=64": dict(
+    PREFILL_SLICE: dict(
         Hq=4, Hkv=4, d=64, bs=16, nb=72, segs=PREFILL_SLICE_SEGS, total=256),
     "d=32 4/4: past 0, off-grid past ending on a block, 1 token, row -1, "
     "pad tail": dict(Hq=4, Hkv=4, d=32, bs=4, nb=6, segs=PREFILL_EDGE_SEGS,
@@ -527,6 +555,19 @@ PREFILL_CASES = {
     "d=64 4/4, rows sharing 2 prefix blocks": dict(
         Hq=4, Hkv=4, d=64, bs=4, nb=6, segs=[(0, 4, 6), (1, 8, 5),
                                              (2, 0, 3)], total=16, share=2),
+    # across the kernel's key splits of 128 positions (5 splits here):
+    # pasts on, one before and one after key 256, one token at the deepest
+    # position (639), rows 0 and 1 sharing 10 blocks (160 keys), -1 tails
+    "d=128 GQA 8/2 bs=16 nb=40: pasts at a split boundary, deepest token, "
+    "shared prefix across a split": dict(
+        Hq=8, Hkv=2, d=128, bs=16, nb=40,
+        segs=[(0, 256, 9), (1, 255, 12), (2, 257, 17), (3, 639, 1)],
+        total=48, share=10),
+    "d=32 GQA 6/2 bs=4 nb=70: 10 tokens per tile, 3 splits": dict(
+        Hq=6, Hkv=2, d=32, bs=4, nb=70,
+        segs=[(0, 120, 13), (1, 0, 30), (2, 250, 20)], total=64),
+    PREFILL_FULL_CHUNK: dict(
+        Hq=4, Hkv=4, d=64, bs=16, nb=72, segs=[(0, 768, 256)], total=256),
 }
 
 
@@ -571,13 +612,16 @@ def check_prefill_kernel(torch, dev, gen, errs):
         scale = kw["d"] ** -0.5
 
         def kernel(dt):
-            out = paged_prefill_attention_cuda(q.to(dt), kp.to(dt),
-                                               vp.to(dt), table, cu, rows,
-                                               past, scale)
+            args = (q.to(dt), kp.to(dt), vp.to(dt), table, cu, rows, past,
+                    scale)
+            out = paged_prefill_attention_cuda(*args)
             dead = row_of_tok < 0
             if dead.any() and (out[dead] != 0).any():
                 raise AssertionError(f"paged_prefill_attention ({case}): "
                                      "padding/inactive tokens not zero")
+            if not torch.equal(out, paged_prefill_attention_cuda(*args)):
+                raise AssertionError(f"paged_prefill_attention ({case}): "
+                                     "two launches differ")
             return out
 
         check_case(
@@ -689,8 +733,12 @@ def time_kernels(torch, dev):
             flush=flush),
         bytes=nbytes, flops=flops)
 
-    out["paged_prefill_attention"] = time_prefill_kernel(torch, dev, gen,
-                                                         flush)
+    prefill_calls = {}
+    for name, case in (("paged_prefill_attention", PREFILL_SLICE),
+                       (f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]",
+                        PREFILL_FULL_CHUNK)):
+        out[name], prefill_calls[name] = time_prefill_kernel(
+            torch, dev, gen, flush, case)
     out.update(time_block_kernels(torch, dev, gen, flush))
     out.update(time_flash_kernels(torch, dev, gen, flush))
 
@@ -703,21 +751,35 @@ def time_kernels(torch, dev):
             f" ms  library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f}"
             f" ms ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB, "
             f"{t['flops'] / 1e9:.3f} GFLOP)")
+    # #12's two launches apart, after every event timing: a profiler
+    # session slows the event timings that follow it
+    for name, call in prefill_calls.items():
+        parts = device_ms_by_kernel(torch, call, flush,
+                                    ("split_kernel", "merge_kernel"))
+        out[name].update(split_kernel_ms=parts["split_kernel"],
+                         merge_kernel_ms=parts["merge_kernel"])
+        log(f"  {name}: split kernel {parts['split_kernel']:.4f} ms, merge "
+            f"kernel {parts['merge_kernel']:.4f} ms (device time, "
+            "torch.profiler)")
     return out
 
 
-def time_prefill_kernel(torch, dev, gen, flush):
-    """#12 at the slice's chunk (fp32): 256 packed tokens in 4 segments of
-    64 with pasts 0, 256, 512, 960, bs 16.  Bytes: q and the output, and
-    each active segment's visible K/V read once; operations: 4*d per valid
+def time_prefill_kernel(torch, dev, gen, flush, case):
+    """#12 on the chunk ``PREFILL_CASES[case]`` (fp32): the slice's 256
+    packed tokens in 4 segments of 64 with pasts 0, 256, 512, 960, or one
+    segment of 256 at past 768; bs 16.  Bytes: q and the output, and each
+    active segment's visible K/V read once; operations: 4*d per valid
     (query, key) pair and query head, counted from this run's segments.
     The yardstick is one SDPA call over the per-segment KV gathered (outside
-    the timing) into a padded batch, with a boolean causal mask."""
+    the timing) into a padded batch, with a boolean causal mask.  Returns
+    the timings and the kernel's call (``time_kernels`` times its two
+    launches apart with ``torch.profiler`` once every event timing is
+    done)."""
     import torch.nn.functional as F
     from repro_torch.serve.paged_attention import (
         packed_token_layout, paged_prefill_attention_cuda,
         paged_prefill_attention_ref)
-    kw = PREFILL_CASES["slice 256 tok/4 segs, pasts 0-960 d=64"]
+    kw = PREFILL_CASES[case]
     q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen, **kw)
     Hq, Hkv, d, bs = kw["Hq"], kw["Hkv"], kw["d"], kw["bs"]
     scale = d ** -0.5
@@ -748,14 +810,18 @@ def time_prefill_kernel(torch, dev, gen, flush):
                                   <= qpos[:, None])
         off += L
     mask[:, :, :, 0] |= True          # padded query rows: keep one key
+
+    def call():
+        return paged_prefill_attention_cuda(q, kp, vp, table, cu, rows,
+                                            past, scale)
+
     return dict(
-        ms=time_ms(torch, lambda: paged_prefill_attention_cuda(
-            q, kp, vp, table, cu, rows, past, scale), flush=flush),
+        ms=time_ms(torch, call, flush=flush),
         plain_ms=time_ms(torch, lambda: paged_prefill_attention_ref(
             q, kp, vp, table, row_of_tok, pos, scale), flush=flush),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=scale), flush=flush),
-        bytes=nbytes, flops=4 * pairs * Hq * d)
+        bytes=nbytes, flops=4 * pairs * Hq * d), call
 
 
 def time_block_kernels(torch, dev, gen, flush):
@@ -2096,6 +2162,9 @@ def main():
     log("[13] card vs CPU for the Scheduler at full width")
     sched["cross_check"] = sched_cross_check(torch, sched_server)
     del sched_server
+    sched["kernel_cases"] = {name: times[name] for name in (
+        "paged_prefill_attention",
+        f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]")}
 
     block = {}
     log("[14] main path: block-choice paged serving at full width")

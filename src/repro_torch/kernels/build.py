@@ -52,7 +52,7 @@ SIGNATURES = {
     "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "repro_flash_attention_varlen": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    "repro_paged_prefill_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "repro_paged_prefill_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
 }
 
 

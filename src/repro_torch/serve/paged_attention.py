@@ -21,7 +21,9 @@ flattened back to back (``cu_seqlens``), segment n continuing batch row
     every token attends the gathered keys of its row at positions <= its
     own;
   * ``paged_prefill_attention_cuda`` — the hand-written CUDA kernel
-    (``csrc/paged_prefill.cu``), reading the packed stream directly;
+    (``csrc/paged_prefill.cu``), reading the packed stream directly, the
+    key axis cut into splits that a second launch merges
+    (``prefill_grid`` gives the geometry);
   * ``paged_prefill_attention``      — the dispatcher, as for decode.
 """
 
@@ -38,6 +40,10 @@ HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8            # query heads per KV head the kernel takes
 LAUNCHES = LaunchCounter("paged_attention_decode")
 LAUNCHES_PREFILL = LaunchCounter("paged_prefill_attention")
+# The packed-prefill kernel's tiles (kRows, kSplitKeys in
+# csrc/paged_prefill.cu): query rows per block, key positions per split.
+PREFILL_ROWS = 32
+PREFILL_SPLIT_KEYS = 128
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale):
@@ -178,13 +184,30 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_table, row_of_tok,
     return out.reshape(total, Hq, d).to(q.dtype)
 
 
+def prefill_grid(total: int, N: int, Hq: int, Hkv: int, d: int, nb: int,
+                 bs: int):
+    """Launch geometry of the packed-prefill kernel for a chunk of
+    ``total`` tokens in ``N`` segments over rows of ``nb`` blocks of ``bs``:
+    (grid, splits, workspace shape).  A block holds ``PREFILL_ROWS`` query
+    rows (the R = Hq / Hkv heads of one KV head for PREFILL_ROWS // R tokens
+    of one segment) against one split of ``PREFILL_SPLIT_KEYS`` key
+    positions.  grid = (query tiles, splits, Hkv): the active segments have
+    at most ceil(total / tokens per tile) + N - 1 tiles.  The fp32
+    workspace (total, Hq, splits, d + 2) holds each split's partial
+    output, running max and denominator per (token, query head)."""
+    tq = PREFILL_ROWS // (Hq // Hkv)
+    splits = -(-(nb * bs) // PREFILL_SPLIT_KEYS)
+    grid = (-(-total // tq) + N - 1, splits, Hkv)
+    return grid, splits, (total, Hq, splits, d + 2)
+
+
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
                                  row_of_seg, past_lens, scale):
     """The CUDA kernel.  q: (total, Hq, d) packed; pools (P, bs, Hkv, d),
     contiguous fp32 or bf16 with d in (32, 64, 128) and Hq / Hkv <= 8;
     block_table (B, nb), cu_seqlens (N + 1,), row_of_seg and past_lens
     (N,), all int32.  Raises on anything else.  Padding tokens and
-    inactive segments come back as exact zeros."""
+    inactive segments come back as exact zeros (the kernel writes them)."""
     if not q.is_cuda:
         raise ValueError("paged_prefill_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 4:
@@ -205,10 +228,11 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
     check_tensor("row_of_seg", row_of_seg, (N,), torch.int32, dev)
     check_tensor("past_lens", past_lens, (N,), torch.int32, dev)
     _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
-    # no block of the grid covers a padding token or an inactive segment
-    out = torch.zeros_like(q)
     if N == 0 or total == 0:
-        return out
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)
+    _, _, ws_shape = prefill_grid(total, N, Hq, Hkv, d, nb, bs)
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -216,8 +240,8 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), cu_seqlens.data_ptr(),
             row_of_seg.data_ptr(), past_lens.data_ptr(), out.data_ptr(),
-            total, N, Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype],
-            stream)
+            ws.data_ptr(), total, N, Hq, Hkv, d, bs, nb, float(scale),
+            DTYPE_CODE[q.dtype], stream)
     check_launch(rc, "paged_prefill_attention")
     LAUNCHES_PREFILL.count += 1
     return out

@@ -285,6 +285,10 @@ def test_mosa_autograd_function_matches_autograd_of_plain(dev, dtype, case):
 # padding tail; ``share`` blocks at the head of rows 0 and 1 are the same
 # (a prefix hit).  The edge segments: past 0; a past off the block grid
 # ending on a block boundary; one token; an inactive segment; the tail.
+# The kernel cuts keys into splits of 128 positions: the last three cases
+# cross split boundaries (pasts on, one before and one after key 256, a
+# token at the deepest position, prefix blocks shared across key 128, 10
+# tokens per tile at R = 3, one 256-token segment at past 768).
 _EDGE = [(0, 0, 5), (1, 13, 3), (2, 7, 1), (-1, 0, 4), (3, 9, 6)]
 PREFILL_CASES = [
     (4, 4, 64, 16, 72, [(0, 0, 64), (1, 256, 64), (2, 512, 64),
@@ -293,6 +297,10 @@ PREFILL_CASES = [
     (8, 2, 64, 4, 6, _EDGE, 24, 0),
     (8, 2, 128, 8, 5, [(0, 0, 33), (1, 8, 7)], 48, 1),
     (4, 4, 64, 4, 6, [(0, 4, 6), (1, 8, 5), (2, 0, 3)], 16, 2),
+    (8, 2, 128, 16, 40, [(0, 256, 9), (1, 255, 12), (2, 257, 17),
+                         (3, 639, 1)], 48, 10),
+    (6, 2, 32, 4, 70, [(0, 120, 13), (1, 0, 30), (2, 250, 20)], 64, 0),
+    (4, 4, 64, 16, 72, [(0, 768, 256)], 256, 0),
 ]
 
 
@@ -345,6 +353,9 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, case):
                                rtol=_tol(dtype))
     dead = row_of_tok < 0
     assert (got[dead] == 0).all()
+    # the splits merge in a fixed order: a second launch gives the same bits
+    assert torch.equal(got, paged_prefill_attention_cuda(
+        q, kp, vp, table, cu, rows, past, scale))
 
 
 def test_scheduler_card_matches_cpu(dev):
