@@ -22,15 +22,21 @@ Phases (any failure raises, so the script exits nonzero):
      across its key splits of 128: pasts on, one before and one after a
      split boundary, a token at the deepest position, prefix blocks shared
      across a split, R = 3; two launches bitwise equal), and the
-     four block-choice kernels (#5-#8) and their autograd Function at the
-     block slice's shape and at edge cases (a ragged last block, empty
-     blocks, two segments, d 32 and 128, bs 64), plus #5/#6 at bs = 1
-     against #1/#2 (bitwise equality reported), and the flash kernels #9
+     block-choice kernels (#5, #6, the fused #7 + #8 on every case with
+     S = NB * bs <= 64, two launches bitwise equal, and the split #7 and
+     #8, called directly, on every case) and their autograd Function (the
+     fused route at S <= 64, the split one above, checked by the counters)
+     at the block slice's shape and at edge cases (a ragged last block,
+     empty blocks, two segments, d 32 and 128, S = 64, bs 3 with S not a
+     multiple of 4, bs 1, rows with only block 0, bs 64), plus #5/#6 and
+     the fused block backward at bs = 1 against #1/#2 and the fused token
+     backward (bitwise equality reported), and the flash kernels #9
      and #10 (GQA, Tq < Tk through q_offset, windows, ragged tiles, d 36
      and 128, segments of length 1, a padding tail that must be zeros);
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch); also the
-     autograd Function's backward prologue (g~, dr, delta) on its own, and
+     autograd Functions' backward prologues (g~, dr, delta; token and
+     block choice) on their own, and
      packed prefill at a second shape (one 256-token segment at past 768,
      the Scheduler's full chunk, in the ``sched`` JSON's kernel_cases);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
@@ -79,7 +85,8 @@ Phases (any failure raises, so the script exits nonzero):
      blocks in every layer; then phase 7 for block choice (one decode
      step profiled);
  16. block-choice training like phase 8: over the 3 timed steps exactly
-     144 launches each of #6, #7 and #8, 0 for #1-#5;
+     144 launches each of #6 and the fused block backward
+     (``mosa_block_attention_bwd``), 0 for #1-#5 and the split #7, #8;
  17. phase 9 for block choice: identical block selections in every layer,
      the loss within 1e-5 relative, every grad within 1e-4;
  18. the block-choice Scheduler at full width (batch 8, 576 blocks of 16,
@@ -386,7 +393,10 @@ def check_train_kernels(torch, dev, gen, errs):
 # Block choice (#5-#8): the slice's shape (B*H = 2208, NB 2, bs 16, S 32,
 # d 64) and edge cases: a ragged last block (T % bs != 0) in every case but
 # the slice, empty blocks (bidx -1, sorted last), two segments, d 32 and
-# 128, a block wider than the kernels' 32-key tile.
+# 128; for the fused backward S = 64 exactly, bs 3 (S = 21, so the staged
+# tile pads to 24 rows), bs 1 and rows whose blocks past block 0 are all
+# empty; a block wider than the split kernels' 32-key tile (S = 128, the
+# split route's case).
 BLOCK_CASES = {
     "slice (8,276) NB=2 bs=16 d=64": dict(B=8, H=276, NB=2, bs=16, d=64,
                                           T=1024),
@@ -396,17 +406,26 @@ BLOCK_CASES = {
                                            T=77, empty=3, two_segs=True),
     "bs=4 d=128, two segments, empty": dict(B=1, H=2, NB=6, bs=4, d=128,
                                             T=50, empty=2, two_segs=True),
+    "S=64 (NB=4 bs=16) d=128, two segs": dict(B=1, H=3, NB=4, bs=16, d=128,
+                                              T=300, empty=2, two_segs=True),
+    "bs=3 (S=21), T % bs != 0, empty": dict(B=2, H=3, NB=7, bs=3, d=64, T=50,
+                                            empty=5),
+    "bs=1 (NB=37), two segments, empty": dict(B=2, H=3, NB=37, bs=1, d=64,
+                                              T=200, empty=6, two_segs=True),
+    "rows with only block 0": dict(B=2, H=3, NB=4, bs=8, d=64, T=90,
+                                   lone_rows=3),
     "bs=64, wider than a key tile": dict(B=1, H=2, NB=2, bs=64, d=64, T=150,
                                          two_segs=True),
 }
 
 
 def block_inputs(torch, B, H, NB, bs, d, T, dev, gen, empty=0,
-                 two_segs=False):
+                 two_segs=False, lone_rows=0):
     """Per (b, h) NB sorted distinct blocks of a length-T sequence: block 0
     (forced, as the layer forces it), the last, short block when bs does
     not divide T, and random others; ``empty`` random slots set to -1 and
-    sorted last, as the layer keeps them."""
+    sorted last, as the layer keeps them; the first ``lone_rows`` (b, h)
+    rows keep block 0 alone."""
     nbt = -(-T // bs)
     ragged = int(T % bs != 0)
     perm = torch.rand(B, H, nbt - 1 - ragged, device=dev,
@@ -420,6 +439,7 @@ def block_inputs(torch, B, H, NB, bs, d, T, dev, gen, empty=0,
                                     generator=gen)] = -1
         key = torch.where(bidx < 0, 2 ** 31 - 1, bidx).sort(-1).values
         bidx = torch.where(key == 2 ** 31 - 1, -1, key)
+    bidx.view(-1, NB)[:lone_rows, 1:] = -1
     S = NB * bs
     q, k, v = (torch.randn(B, H, S, d, device=dev, generator=gen)
                for _ in range(3))
@@ -433,8 +453,12 @@ def block_inputs(torch, B, H, NB, bs, d, T, dev, gen, empty=0,
 
 def check_block_kernels(torch, dev, gen, errs):
     """#5 and #6 against their plain versions (invalid query rows exact
-    zeros), #7 and #8 on the same g~, lse and delta as theirs, and the
-    autograd Function against autograd of ``mosa_block_attention_ref``."""
+    zeros); the backward kernels on the same g~, lse and delta as theirs:
+    the fused #7 + #8 on every case with S <= 64, two of its launches
+    bitwise equal, and the split #7 and #8, called directly, on every case;
+    the autograd Function against autograd of ``mosa_block_attention_ref``
+    (the fused route at S <= 64, the split route above)."""
+    from repro_torch.kernels import mosa_backward as kbwd
     from repro_torch.kernels import mosa_block as kb
     for case, kw in BLOCK_CASES.items():
         q, k, v, bidx, rblk, seg = block_inputs(torch, dev=dev, gen=gen,
@@ -467,23 +491,41 @@ def check_block_kernels(torch, dev, gen, errs):
                 seg=seg),
             "mosa_block_attention_fwd_res", case, errs, ("o_pre", "lse"))
 
-        def bwd(dt, kernel):
-            qq, kk, vv = (x.to(dt) for x in (q, k, v))
+        def bwd(fn, dt, cast):
+            qq, kk, vv = (cast(x.to(dt)) for x in (q, k, v))
             o_pre, lse = kb.mosa_block_attention_fwd_res_ref(
                 *(x.float() for x in (qq, kk, vv)), bidx, bs, T, seg=seg)
             gt = torch.where(ok[..., None], g, 0.0).contiguous()
             delta = (gt * o_pre).sum(-1).contiguous()
-            args = (gt, lse, delta, bs, T)
-            if kernel:
-                dq = kb.mosa_block_attention_bwd_dq_cuda(qq, kk, vv, bidx,
-                                                         *args, seg=seg)
-                return (dq,) + kb.mosa_block_attention_bwd_dkv_cuda(
-                    qq, kk, vv, bidx, *args, seg=seg)
-            return kb.mosa_block_attention_bwd_ref(
-                *(x.float() for x in (qq, kk, vv)), bidx, *args, seg=seg)
+            return fn(qq, kk, vv, bidx, gt, lse, delta, bs, T, seg=seg)
 
-        check_case(torch, lambda dt: bwd(dt, True), lambda dt: bwd(dt, False),
-                   "mosa_block_attention_bwd", case, errs, ("dq", "dk", "dv"))
+        def split(*args, **opts):
+            return ((kb.mosa_block_attention_bwd_dq_cuda(*args, **opts),)
+                    + kb.mosa_block_attention_bwd_dkv_cuda(*args, **opts))
+
+        def plain(dt):
+            return bwd(kb.mosa_block_attention_bwd_ref, dt,
+                       lambda x: x.float())
+
+        fused = kbwd.fused_bwd_fits(kw["NB"] * bs, kw["d"])
+        if fused:
+            check_case(
+                torch, lambda dt: bwd(kb.mosa_block_attention_bwd_fused_cuda,
+                                      dt, lambda x: x),
+                plain, "mosa_block_attention_bwd", case, errs,
+                ("dq", "dk", "dv"))
+            for dt in (torch.float32, torch.bfloat16):
+                first, again = (bwd(kb.mosa_block_attention_bwd_fused_cuda,
+                                    dt, lambda x: x) for _ in range(2))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"fused block backward not "
+                                         f"deterministic on {case} in {dt}")
+            log(f"  {'mosa_block_attention_bwd':31s} {case:40s} two launches "
+                "bitwise equal (fp32, bf16)")
+        check_case(torch, lambda dt: bwd(split, dt, lambda x: x), plain,
+                   "mosa_block_attention_bwd_split", case, errs,
+                   ("dq", "dk", "dv"))
 
         def function_grads(dt, plain):
             leaves = [x.to(dt).float() if plain else x.to(dt)
@@ -495,28 +537,45 @@ def check_block_kernels(torch, dev, gen, errs):
             gg = g.to(dt).float() if plain else g
             return torch.autograd.grad((out.float() * gg).sum(), leaves)
 
+        counters = (kb.LAUNCHES_BWD, kb.LAUNCHES_DQ, kb.LAUNCHES_DKV)
+        before = [c.count for c in counters]
         check_case(torch, lambda dt: function_grads(dt, False),
                    lambda dt: function_grads(dt, True),
                    "mosa_block_attention_function", case, errs,
                    ("dq", "dk", "dv", "dr_blk"))
+        # one backward per dtype, through the route this case's S takes
+        route = [c.count - b for c, b in zip(counters, before)]
+        if route != ([2, 0, 0] if fused else [0, 2, 2]):
+            raise AssertionError(f"the block Function's backward on {case} "
+                                 f"took {route} launches of (fused, dq, dkv)")
     errs["mosa_block_attention_fwd_res"] = max(
         errs["mosa_block_attention_fwd_res.o_pre"],
         errs["mosa_block_attention_fwd_res.lse"])
-    errs["mosa_block_attention_bwd_dq"] = errs["mosa_block_attention_bwd.dq"]
+    errs["mosa_block_attention_bwd"] = max(
+        errs[f"mosa_block_attention_bwd.{p}"] for p in ("dq", "dk", "dv"))
+    errs["mosa_block_attention_bwd_dq"] = errs[
+        "mosa_block_attention_bwd_split.dq"]
     errs["mosa_block_attention_bwd_dkv"] = max(
-        errs["mosa_block_attention_bwd.dk"], errs["mosa_block_attention_bwd.dv"])
+        errs["mosa_block_attention_bwd_split.dk"],
+        errs["mosa_block_attention_bwd_split.dv"])
     check_block_bs1(torch, dev, gen)
 
 
 def check_block_bs1(torch, dev, gen):
-    """#5 and #6 at bs = 1 against #1 and #2 on the same inputs: the block
-    kernels stage the same values and run the same float operations, so
-    they should agree bit for bit; anything else must stay within the fp32
-    tolerance."""
+    """#5, #6 and the fused block backward at bs = 1 against #1, #2 and
+    the fused token backward on the same inputs (the backward on the same
+    g~, lse and delta): the block kernels stage the same values and run the
+    same float operations, so they should agree bit for bit; anything else
+    must stay within the fp32 tolerance."""
     from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kbwd
     from repro_torch.kernels import mosa_block as kb
     q, k, v, idx, r, seg = mosa_inputs(torch, 2, 3, 37, 64, 200, dev, gen,
                                        zero_rows=10, with_seg=True)
+    o_pre, lse = km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg)
+    gt = (torch.randn(q.shape, device=dev, generator=gen)
+          * r[..., None]).contiguous()
+    delta = (gt * o_pre).sum(-1).contiguous()
     pairs = [
         ("#5 vs #1", kb.mosa_block_attention_cuda(q, k, v, idx, r, 1, 200,
                                                   seg=seg),
@@ -525,7 +584,13 @@ def check_block_bs1(torch, dev, gen):
                                 kb.mosa_block_attention_fwd_res_cuda(
                                     q, k, v, idx, 1, 200, seg=seg)]),
          torch.cat([t.flatten() for t in km.mosa_attention_fwd_res_cuda(
-             q, k, v, idx, seg=seg)]))]
+             q, k, v, idx, seg=seg)])),
+        ("fused block bwd vs fused token bwd",
+         torch.cat([t.flatten() for t in
+                    kb.mosa_block_attention_bwd_fused_cuda(
+                        q, k, v, idx, gt, lse, delta, 1, 200, seg=seg)]),
+         torch.cat([t.flatten() for t in kbwd.mosa_attention_bwd_fused_cuda(
+             q, k, v, idx, gt, lse, delta, seg=seg)]))]
     for name, a, b in pairs:
         e = max_err(torch, a, b, FP32_TOL, FP32_TOL)
         log(f"  bs=1 {name}: bitwise equal {torch.equal(a, b)}, max|err| "
@@ -831,8 +896,10 @@ def time_block_kernels(torch, dev, gen, flush):
     lse and delta, each output written once; operations: 2*d per product of
     two d-vectors over the valid (query, key) pairs of this run's blocks.
     The yardstick is SDPA with the equivalent boolean mask over the
-    expanded positions (forward for #5 and #6, its backward for #7 and
-    #8, which computes dq, dk and dv in one call)."""
+    expanded positions (forward for #5 and #6, its backward for the fused
+    #7 + #8 and for each of the split #7 and #8, which computes dq, dk and
+    dv in one call).  Also timed and logged: the block Function's backward
+    prologue (the block mask, g~, dr per block, delta) on its own."""
     import torch.nn.functional as F
     from repro_torch.kernels import mosa_block as kb
     kw = BLOCK_CASES["slice (8,276) NB=2 bs=16 d=64"]
@@ -856,7 +923,24 @@ def time_block_kernels(torch, dev, gen, flush):
         sdpa, leaves, g, retain_graph=True), flush=flush)
     sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask), flush=flush)
+
+    def prologue():   # MoSABlockAttentionFunction.backward before the kernel
+        _, ok = kb.expand_blocks(bidx, bs, T)
+        gt = torch.where(ok[..., None], kb.scale_rows(g, rblk, bs),
+                         0.0).contiguous()
+        dr = (g * o_pre).sum(-1).unflatten(-1, (-1, bs)).sum(-1)
+        return gt, dr, (gt * o_pre).sum(-1).contiguous()
+
+    prologue_ms = time_ms(torch, prologue, flush=flush)
+    log(f"  the block Function's backward prologue (mask, g~, dr, delta): "
+        f"{prologue_ms:.4f} ms")
     return {
+        "mosa_block_attention_bwd": dict(
+            ms=time_ms(torch, lambda: kb.mosa_block_attention_bwd_fused_cuda(
+                *bwd_args), flush=flush),
+            plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            bytes=7 * vec + 2 * row + blk, flops=10 * pairs * d,
+            prologue_ms=prologue_ms),
         "mosa_block_attention": dict(
             ms=time_ms(torch, lambda: kb.mosa_block_attention_cuda(
                 q, k, v, bidx, rblk, bs, T), flush=flush),
@@ -962,7 +1046,8 @@ def kernel_counters():
                                 kbwd.LAUNCHES, kbwd.LAUNCHES_DQ,
                                 kbwd.LAUNCHES_DKV,
                                 kblock.LAUNCHES, kblock.LAUNCHES_FWD_RES,
-                                kblock.LAUNCHES_DQ, kblock.LAUNCHES_DKV,
+                                kblock.LAUNCHES_BWD, kblock.LAUNCHES_DQ,
+                                kblock.LAUNCHES_DKV,
                                 kflash.LAUNCHES, kflash.LAUNCHES_VARLEN,
                                 kpaged.LAUNCHES, kpaged.LAUNCHES_PREFILL)}
 
@@ -1203,9 +1288,8 @@ def train_slice(torch, **mosa):
 
     timed = TRAIN_STEPS - 1
     per_layer = mc.n_layers * cfg.microbatch * timed
-    # token choice at S = k = 32: the fused backward; block choice: #6-#8
-    names = (("mosa_block_attention_fwd_res", "mosa_block_attention_bwd_dq",
-              "mosa_block_attention_bwd_dkv")
+    # S = k = 32 (token choice) or 2 blocks of 16: the fused backward
+    names = (("mosa_block_attention_fwd_res", "mosa_block_attention_bwd")
              if mc.mosa.selection_granularity == "block"
              else ("mosa_attention_fwd_res", "mosa_attention_bwd"))
     want = want_launches(**{name: per_layer for name in names})
@@ -2180,6 +2264,10 @@ def main():
     log("[16] main path: block-choice training at full width")
     btrainer, block["train"] = train_slice(torch, **BLOCK_MOSA)
 
+    block["train"]["fused_bwd"] = {k: times["mosa_block_attention_bwd"][k]
+                                   for k in ("ms", "prologue_ms", "bound_ms",
+                                             "library_ms")}
+
     log("[17] card vs CPU for block-choice training at full width")
     block["train"]["cross_check"] = train_cross_check(torch, btrainer)
     del btrainer
@@ -2230,6 +2318,10 @@ def main():
         "mosa_block_attention_fwd_res": (
             "src/repro_torch/csrc/mosa_attention.cu",
             "src/repro/kernels/mosa_block.py:128"),
+        "mosa_block_attention_bwd": (
+            "src/repro_torch/csrc/mosa_backward.cu",
+            "src/repro/kernels/mosa_block.py:182, "
+            "src/repro/kernels/mosa_block.py:227"),
         "mosa_block_attention_bwd_dq": (
             "src/repro_torch/csrc/mosa_backward.cu",
             "src/repro/kernels/mosa_block.py:182"),

@@ -37,33 +37,47 @@
 // 32 coefficients in shared memory, and each lane accumulates the output
 // columns it owns.
 //
-// Block choice (`kBlock`): the same two kernels replace
-// `_mosa_block_bwd_dq_kernel` (:182) and `_mosa_block_bwd_dkv_kernel` (:227)
-// of src/repro/kernels/mosa_block.py, launched by
-// `mosa_block_attention_bwd_pallas` (:371).  `idx` is the block table
-// (BH, S / bs) and every staged row expands its own position in the
-// kernel (sel_pos in common.cuh): keys are valid iff their block is not
-// empty and pos < seq_len, queries keep their raw position.  Invalid query
-// rows arrive with g~ = 0 and delta = 0 (the wrapper zeroes them), so their
-// dS and their share of dV vanish term by term.  At bs = 1 both kernels
-// compute what the token kernels do, bit for bit.
+// Block choice (`kBlock`): the same kernels replace the two TPU kernels of
+// src/repro/kernels/mosa_block.py, `_mosa_block_bwd_dq_kernel` (:182) and
+// `_mosa_block_bwd_dkv_kernel` (:227), both launched by
+// `mosa_block_attention_bwd_pallas` (:371; calls at :390 and :409): the
+// fused kernel below whenever a row fits one tile (S = NB * bs <= 64), the
+// split pair above otherwise.  `idx` is the block table (BH, S / bs), and
+// each kernel expands it per selected row (sel_pos in common.cuh): pos =
+// bidx[j / bs] * bs + j % bs; a row is a valid key iff its block is not
+// empty and pos < seq_len, while as a query it keeps its raw position.
+// Invalid query rows arrive with g~ = 0 and delta = 0 (the wrapper zeroes
+// them), so their dS is exactly 0 and their share of dV vanishes term by
+// term.  At bs = 1 every kernel computes what its token-choice form does,
+// bit for bit.
 //
-// Fused token-choice backward (`mosa_bwd_fused_kernel`, S <= 64): the
-// training path's form of #3 + #4.  When a row's S selected tokens fit one
-// tile, one block holds the whole row, so dq needs no key outside the block
-// and one block can produce dq, dk and dv with no atomics.  The two split
-// kernels above each recompute S = q.k^T and dP = g~.v^T and each read q,
-// k, v and g~ from device memory (7 S x S x d products where 5 are needed),
-// and both are bound by shared-memory instructions: one scalar load pair
-// per FMA pair in the pair dots and a read-modify-write of a shared
-// accumulator per output.  The fused kernel:
+// Fused backward (`mosa_bwd_fused_kernel`, S <= 64): the training path's
+// form of #3 + #4 (token choice) and of #7 + #8 (block choice), one
+// template for both.  When a row's S selected tokens fit one tile, one
+// block holds the whole row, so dq needs no key outside the block and one
+// block can produce dq, dk and dv with no atomics.  The two split kernels
+// above each recompute S = q.k^T and dP = g~.v^T and each read q, k, v and
+// g~ from device memory (7 S x S x d products where 5 are needed), and
+// both are bound by shared-memory instructions: one scalar load pair per
+// FMA pair in the pair dots and a read-modify-write of a shared
+// accumulator per output, rows one after another in each warp.  The fused
+// kernel:
 //
 //   * stages the row's q, k, v (in their dtype) and g~ (fp32) in shared
 //     memory with cp.async 16-byte copies (cp.async.cg.shared.global; 4-byte
 //     copies for lse, delta, idx and seg), rows at a padded stride of
 //     d + 16 bytes' worth of elements, which keeps 16-byte alignment and
 //     spreads neighbouring rows over the banks.  The copy is a pure copy:
-//     q is not pre-scaled, the scale multiplies each score and dK instead;
+//     q is not pre-scaled, the scale multiplies each score and dK instead.
+//     Block choice copies the row's block table (NB ints) the same way,
+//     into the scratch that P later takes, and expands it in shared memory
+//     once the copies have landed, into two arrays: each row's query
+//     position and its key position (-1 where the row is no key).  Token
+//     choice reads both from the one idx array.  Expanding each row from
+//     device memory while the copies were in flight put a dependent load on
+//     every block's critical path and was slower on the H100 (PERF.md).
+//     Padded rows S..Sp-1 are no query and no key (the i < S and j < S
+//     tests of phase A), in both modes;
 //   * phase A: S and dP as register-tiled products, each thread a 2 x 4
 //     micro-tile of both (queries i0, i0+1; keys j0 + m * Sp/4, strided so
 //     the 8 key rows a warp reads lie on distinct banks), 16-byte operand
@@ -82,21 +96,24 @@
 //     second stage) kept only 2 blocks per SM at the slice and measured
 //     4-12% slower on the H100 (PERF.md), so it is not kept.
 //
-// Bound on an H100 at the slice (2208 rows, S = 32, d = 64, fp32): 10 *
-// pairs * d ~ 0.75 GFLOP of valid work, ~0.011 ms at 67 TFLOP/s, against
-// ~127 MB moved (q, k, v, g~ read, dq, dk, dv written), ~0.038 ms at 3.35
-// TB/s: bound by bytes.  Tensor cores are not used: fp32 inputs would need
-// TF32, whose ~3 decimal digits break the 2e-5 fp32 tolerance, and the
-// CUDA cores' operations bound is already below the byte bound; bf16 inputs
-// are widened to fp32 as they are read from shared memory.  The reduction
-// order is fixed, so the result is deterministic run to run.  Any d <= 128
-// and any 1 <= S <= 64 are taken without padding in device memory: padded
-// rows and columns of the staged tiles are zeros, and masked or padded
-// pairs give P = dS = 0 by selection (never by multiplying a NaN).  Rows
-// whose d (or whose pointers) do not allow 16-byte copies are staged with
-// plain loads.  On the H100 the kernel runs at about twice the byte bound:
-// within a block a row's copies and its compute do not overlap, and the
-// resident blocks hide only part of that (PERF.md).
+// Bound on an H100 at either slice (2208 rows, S = 32, d = 64, fp32; block
+// choice as NB = 2 blocks of bs = 16): 10 * pairs * d ~ 0.75 GFLOP of
+// valid work, ~0.011 ms at 67 TFLOP/s, against ~127 MB moved (q, k, v, g~
+// read once, dq, dk, dv written once, plus lse, delta and the idx or block
+// table), ~0.038 ms at 3.35 TB/s: bound by bytes.  Tensor cores are not
+// used: fp32 inputs would need TF32, whose ~3 decimal digits break the
+// 2e-5 fp32 tolerance, and the CUDA cores' operations bound is already
+// below the byte bound; bf16 inputs are widened to fp32 as they are read
+// from shared memory.  The reduction order is fixed, so the result is
+// deterministic run to run.  Any d <= 128 and any 1 <= S <= 64 (any bs
+// that divides S) are taken without padding in device memory: padded rows
+// and columns of the staged tiles are zeros, and masked or padded pairs
+// give P = dS = 0 by selection (never by multiplying a NaN).  Rows whose d
+// (or whose pointers) do not allow 16-byte copies are staged with plain
+// loads.  On the H100 both forms run at about twice the byte bound, ~0.077
+// ms at either slice against 0.32-0.35 ms for the split pairs (chip_smoke
+// [4], PERF.md): within a block a row's copies and its compute do not
+// overlap, and the resident blocks hide only part of that.
 
 #include <stdint.h>
 
@@ -431,16 +448,18 @@ constexpr int kFusedThreads = 128;
 constexpr int kFusedMaxS = 64;
 constexpr int kMaxD = 128;
 
-// Shared-memory layout of the fused kernel for one (S, d, element size).
-// Sp = S rounded up to 4, dpad = d rounded up to 4 (the width the products
-// run over), row strides of 16 bytes' worth of elements past the rounded
-// width; ps = the row stride of P, dS and dS^T.
+// Shared-memory layout of the fused kernel for one (S, d, element size,
+// mode).  Sp = S rounded up to 4, dpad = d rounded up to 4 (the width the
+// products run over), row strides of 16 bytes' worth of elements past the
+// rounded width; ps = the row stride of P, dS and dS^T.  Block choice
+// stages one more int per row (the query positions).
 struct FusedLayout {
   int Sp, dpad, dsT, dsF, ps;
   size_t stage_bytes, scratch_bytes;
 };
 
-__host__ __device__ inline FusedLayout fused_layout(int S, int d, int tsize) {
+__host__ __device__ inline FusedLayout fused_layout(int S, int d, int tsize,
+                                                    bool block) {
   FusedLayout L;
   const int vT = 16 / tsize;
   L.Sp = (S + 3) / 4 * 4;
@@ -449,18 +468,23 @@ __host__ __device__ inline FusedLayout fused_layout(int S, int d, int tsize) {
   L.dsF = L.dpad + 4;
   L.ps = L.Sp + 4;
   L.stage_bytes = static_cast<size_t>(L.Sp) *
-                  (3 * L.dsT * tsize + L.dsF * 4 + 4 * 4);
+                  (3 * L.dsT * tsize + L.dsF * 4 + (block ? 5 : 4) * 4);
   L.scratch_bytes = 3 * sizeof(float) * static_cast<size_t>(L.Sp) * L.ps;
   return L;
 }
 
-// The staged row: q, k, v [Sp][dsT] (dtype T), g~ [Sp][dsF], lse,
-// delta, idx and seg [Sp].
-template <typename T>
+// The staged row: q, k, v [Sp][dsT] (dtype T), g~ [Sp][dsF], lse, delta,
+// idx (each row's key position, -1 = not a key) and seg [Sp], and pos
+// (each row's query position): its own [Sp] array in block choice, where
+// an invalid row keeps its raw position as a query; idx itself in token
+// choice.  Block choice copies the row's block table (NB ints) to `table`,
+// the start of P's scratch, and expands it into idx and pos before phase
+// A writes P.
+template <typename T, bool kBlock>
 struct Stage {
   T *q, *k, *v;
   float *g, *lse, *delta;
-  int *idx, *seg;
+  int *idx, *seg, *pos, *table;
 
   __device__ Stage(unsigned char* base, const FusedLayout& L) {
     const size_t n = static_cast<size_t>(L.Sp) * L.dsT;
@@ -472,13 +496,15 @@ struct Stage {
     delta = lse + L.Sp;
     idx = reinterpret_cast<int*>(delta + L.Sp);
     seg = idx + L.Sp;
+    pos = kBlock ? seg + L.Sp : idx;
+    table = reinterpret_cast<int*>(base + L.stage_bytes);
   }
 };
 
 // Start the copies of row `row` into `st` (16-byte cp.async when `vec`,
 // else plain loads), uncommitted.
-template <typename T>
-__device__ void fetch_row(const Stage<T>& st, const FusedLayout& L,
+template <typename T, bool kBlock>
+__device__ void fetch_row(const Stage<T, kBlock>& st, const FusedLayout& L,
                           const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const float* __restrict__ gt,
@@ -486,7 +512,7 @@ __device__ void fetch_row(const Stage<T>& st, const FusedLayout& L,
                           const float* __restrict__ delta,
                           const int* __restrict__ idx,
                           const int* __restrict__ seg, size_t row, int S,
-                          int d, bool vec) {
+                          int d, bool vec, int bs) {
   const size_t base = row * S;
   const T* qb = q + base * d;
   const T* kb = k + base * d;
@@ -521,12 +547,16 @@ __device__ void fetch_row(const Stage<T>& st, const FusedLayout& L,
   for (int i = threadIdx.x; i < S; i += kFusedThreads) {
     cp_async4(st.lse + i, lse + base + i);
     cp_async4(st.delta + i, delta + base + i);
-    cp_async4(st.idx + i, idx + base + i);
+    if constexpr (kBlock) {
+      if (i < S / bs) cp_async4(st.table + i, idx + row * (S / bs) + i);
+    } else {
+      cp_async4(st.idx + i, idx + base + i);
+    }
     if (seg) cp_async4(st.seg + i, seg + base + i);
   }
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 __global__ void __launch_bounds__(kFusedThreads)
 mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ idx,
@@ -535,11 +565,11 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dq,
                       T* __restrict__ dk, T* __restrict__ dv, int S, int d,
-                      float scale, bool vec) {
+                      float scale, bool vec, int bs, int seq_len) {
   extern __shared__ float4 fused_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(fused_smem);
-  const FusedLayout L = fused_layout(S, d, sizeof(T));
-  const Stage<T> st(smem, L);
+  const FusedLayout L = fused_layout(S, d, sizeof(T), kBlock);
+  const Stage<T, kBlock> st(smem, L);
   float* P = reinterpret_cast<float*>(smem + L.stage_bytes);
   float* dS = P + L.Sp * L.ps;
   float* dSt = dS + L.Sp * L.ps;
@@ -550,8 +580,8 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Start the row's copies, then zero the padding (rows S..Sp-1, columns
   // d..dpad-1), which the copies never write.  Without seg every key is in
-  // segment 0.
-  fetch_row(st, L, q, k, v, gt, lse, delta, idx, seg, row, S, d, vec);
+  // segment 0.  Block choice then expands the staged block table (sel_pos).
+  fetch_row(st, L, q, k, v, gt, lse, delta, idx, seg, row, S, d, vec, bs);
   cp_async_commit();
   if (S < L.Sp || d < L.dpad) {
     for (int i = threadIdx.x; i < L.Sp * L.dpad; i += kFusedThreads) {
@@ -569,6 +599,15 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < L.Sp; i += kFusedThreads) st.seg[i] = 0;
   cp_async_wait_all();
   __syncthreads();
+  if constexpr (kBlock) {
+    for (int i = threadIdx.x; i < S; i += kFusedThreads) {
+      bool valid;
+      const int p = sel_pos<true>(st.table, 0, S, i, bs, seq_len, valid);
+      st.pos[i] = p;
+      st.idx[i] = valid ? p : -1;
+    }
+    __syncthreads();
+  }
 
   // Phase A: S and dP, a 2 x 4 micro-tile of each per thread.
   for (int t = threadIdx.x; t < nqg * nkg; t += kFusedThreads) {
@@ -599,7 +638,7 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int i = i0 + r;
       const bool q_ok = i < S;
-      const int iq = q_ok ? st.idx[i] : -1;
+      const int iq = q_ok ? st.pos[i] : -1;
       const int sq = q_ok ? st.seg[i] : 0;
       const float lse_i = q_ok ? st.lse[i] : 0.f;
       const float delta_i = q_ok ? st.delta[i] : 0.f;
@@ -679,42 +718,49 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block per row.
-template <typename T>
+template <typename T, bool kBlock>
 int launch_fused(const void* q, const void* k, const void* v, const void* idx,
                  const void* seg, const void* gt, const void* lse,
                  const void* delta, void* dq, void* dk, void* dv, int BH,
-                 int S, int d, float scale, cudaStream_t stream) {
-  if (S < 1 || S > kFusedMaxS || d < 1 || d > kMaxD || BH < 0)
+                 int S, int d, float scale, int bs, int seq_len,
+                 cudaStream_t stream) {
+  if (S < 1 || S > kFusedMaxS || d < 1 || d > kMaxD || BH < 0 || bs < 1 ||
+      S % bs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (BH == 0) return static_cast<int>(cudaSuccess);
-  const FusedLayout L = fused_layout(S, d, sizeof(T));
+  const FusedLayout L = fused_layout(S, d, sizeof(T), kBlock);
   const size_t smem = L.stage_bytes + L.scratch_bytes;
   const bool vec = d % (16 / sizeof(T)) == 0 && aligned16(q) &&
                    aligned16(k) && aligned16(v) && aligned16(gt) &&
                    aligned16(dq) && aligned16(dk) && aligned16(dv);
-  const cudaError_t err = allow_smem(mosa_bwd_fused_kernel<T>, smem);
+  auto* kernel = mosa_bwd_fused_kernel<T, kBlock>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mosa_bwd_fused_kernel<T><<<BH, kFusedThreads, smem, stream>>>(
+  kernel<<<BH, kFusedThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(gt),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), S, d,
-      scale, vec);
+      scale, vec, bs, seq_len);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kBlock>
 int fused_dtype(int dtype, const void* q, const void* k, const void* v,
                 const void* idx, const void* seg, const void* gt,
                 const void* lse, const void* delta, void* dq, void* dk,
-                void* dv, int BH, int S, int d, float scale, void* stream) {
+                void* dv, int BH, int S, int d, float scale, int bs,
+                int seq_len, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_fused<float>(q, k, v, idx, seg, gt, lse, delta, dq, dk, dv,
-                               BH, S, d, scale, st);
+    return launch_fused<float, kBlock>(q, k, v, idx, seg, gt, lse, delta, dq,
+                                       dk, dv, BH, S, d, scale, bs, seq_len,
+                                       st);
   if (dtype == kBFloat16)
-    return launch_fused<__nv_bfloat16>(q, k, v, idx, seg, gt, lse, delta, dq,
-                                       dk, dv, BH, S, d, scale, st);
+    return launch_fused<__nv_bfloat16, kBlock>(q, k, v, idx, seg, gt, lse,
+                                               delta, dq, dk, dv, BH, S, d,
+                                               scale, bs, seq_len, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -757,8 +803,8 @@ extern "C" int repro_mosa_attention_bwd(const void* q, const void* k,
                                         void* dq, void* dk, void* dv, int BH,
                                         int S, int d, float scale, int dtype,
                                         void* stream) {
-  return fused_dtype(dtype, q, k, v, idx, seg, gt, lse, delta, dq, dk, dv, BH,
-                     S, d, scale, stream);
+  return fused_dtype<false>(dtype, q, k, v, idx, seg, gt, lse, delta, dq, dk,
+                            dv, BH, S, d, scale, 1, 0, stream);
 }
 
 // Block choice (kernels #7 and #8): as above with S = NB * bs, bidx (BH,
@@ -780,4 +826,17 @@ extern "C" int repro_mosa_block_attention_bwd_dkv(
     int dtype, void* stream) {
   return dkv_dtype<true>(dtype, q, k, v, bidx, seg, gt, lse, delta, dk, dv,
                          BH, S, d, scale, bs, T, stream);
+}
+
+// The fused block-choice backward (#7 + #8 in one launch; S = NB * bs <=
+// 64, d <= 128, bs divides S): inputs as the two entries above, dq, dk, dv
+// as repro_mosa_attention_bwd.  Returns cudaErrorInvalidValue outside that
+// range, else cudaGetLastError().
+extern "C" int repro_mosa_block_attention_bwd(
+    const void* q, const void* k, const void* v, const void* bidx,
+    const void* seg, const void* gt, const void* lse, const void* delta,
+    void* dq, void* dk, void* dv, int BH, int S, int d, int bs, int T,
+    float scale, int dtype, void* stream) {
+  return fused_dtype<true>(dtype, q, k, v, bidx, seg, gt, lse, delta, dq, dk,
+                           dv, BH, S, d, scale, bs, T, stream);
 }

@@ -22,7 +22,13 @@ identity and each function equals its token-choice counterpart
     the kernels are checked against on the card);
   * ``*_cuda`` — the hand-written CUDA kernels, the block-choice mode of
     ``csrc/mosa_attention.cu`` and ``csrc/mosa_backward.cu``, each with its
-    launch counter;
+    launch counter.  The backward has two routes, as token choice's has:
+    ``mosa_block_attention_bwd_fused_cuda``, #7 and #8 fused into one
+    launch (the block form of ``mosa_bwd_fused_kernel``) when a row's S =
+    NB * bs selected tokens fit one tile (``fused_bwd_fits``: S <= 64,
+    d <= 128), and the split #7 (``_bwd_dq_cuda``) and #8
+    (``_bwd_dkv_cuda``) otherwise; ``mosa_block_attention_bwd_cuda``
+    picks between them;
   * ``MoSABlockAttentionFunction`` — the ``torch.autograd.Function`` (the
     counterpart of ``_build`` in the JAX module), whose router gradient is
     per block;
@@ -40,10 +46,12 @@ from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
                                       check_launch, check_tensor, library)
 from repro_torch.kernels.mosa_attention import (MAX_D, data_ptr, pair_mask,
                                                 softmax_parts, wide)
-from repro_torch.kernels.mosa_backward import bwd_from_mask
+from repro_torch.kernels.mosa_backward import (FUSED_MAX_S, bwd_from_mask,
+                                               fused_bwd_fits)
 
 LAUNCHES = LaunchCounter("mosa_block_attention")
 LAUNCHES_FWD_RES = LaunchCounter("mosa_block_attention_fwd_res")
+LAUNCHES_BWD = LaunchCounter("mosa_block_attention_bwd")
 LAUNCHES_DQ = LaunchCounter("mosa_block_attention_bwd_dq")
 LAUNCHES_DKV = LaunchCounter("mosa_block_attention_bwd_dkv")
 
@@ -214,6 +222,39 @@ def mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse, delta,
     return dk, dv
 
 
+def mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse, delta,
+                                        bs: int, T: int, scale=None,
+                                        seg=None):
+    """#7 + #8 in one launch, one block per row: (dq, dk, dv).  Inputs as
+    ``mosa_block_attention_bwd_dq_cuda``, with ``fused_bwd_fits(S, d)``.
+    Raises on anything else."""
+    BH, S, d = _check_bwd("mosa_block_attention_bwd_fused_cuda", q, k, v,
+                          bidx, seg, gt, lse, delta, bs, T)
+    if not fused_bwd_fits(S, d):
+        raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
+                         f"d <= {MAX_D}, got S={S}, d={d}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    _launch("repro_mosa_block_attention_bwd", LAUNCHES_BWD, q, k, v, bidx,
+            seg, gt, lse, delta, dq, dk, dv, BH, S, d, bs, T,
+            float(scale if scale is not None else d ** -0.5),
+            DTYPE_CODE[q.dtype])
+    return dq, dk, dv
+
+
+def mosa_block_attention_bwd_cuda(q, k, v, bidx, gt, lse, delta, bs: int,
+                                  T: int, scale=None, seg=None):
+    """(dq, dk, dv): the fused kernel where ``fused_bwd_fits``, else the
+    split kernels #7 and #8."""
+    if fused_bwd_fits(q.shape[-2], q.shape[-1]):
+        return mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse,
+                                                   delta, bs, T, scale, seg)
+    dq = mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, lse, delta, bs,
+                                          T, scale, seg)
+    dk, dv = mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse, delta,
+                                               bs, T, scale, seg)
+    return dq, dk, dv
+
+
 # -------------------------------------------------------------- dispatch
 def mosa_block_attention_fwd_res(q, k, v, bidx, bs, T, scale=None, seg=None):
     """Kernel #6 for CUDA tensors, the plain version for CPU tensors."""
@@ -225,14 +266,12 @@ def mosa_block_attention_fwd_res(q, k, v, bidx, bs, T, scale=None, seg=None):
 
 def mosa_block_attention_bwd(q, k, v, bidx, gt, lse, delta, bs, T,
                              scale=None, seg=None):
-    """Kernels #7 and #8 for CUDA tensors, the plain version for CPU
+    """The backward kernels for CUDA tensors (the fused #7 + #8 where a
+    row fits one tile, the split pair otherwise), the plain version for CPU
     tensors: (dq, dk, dv)."""
     if q.is_cuda:
-        dq = mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, lse, delta,
-                                              bs, T, scale, seg)
-        dk, dv = mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse,
-                                                   delta, bs, T, scale, seg)
-        return dq, dk, dv
+        return mosa_block_attention_bwd_cuda(q, k, v, bidx, gt, lse, delta,
+                                             bs, T, scale, seg)
     return mosa_block_attention_bwd_ref(q, k, v, bidx, gt, lse, delta, bs, T,
                                         scale, seg)
 
@@ -252,8 +291,9 @@ class MoSABlockAttentionFunction(torch.autograd.Function):
       delta  = rowsum(g~ * o_pre)
       dr_blk = rowsum(g * o_pre) summed over each block
 
-    then kernels #7 and #8 give dq, dk and dv.  Every tensor is detached
-    before it reaches a kernel (the kernels refuse autograd inputs)."""
+    then ``mosa_block_attention_bwd`` gives dq, dk and dv (#7 + #8 fused
+    at S <= 64, split above).  Every tensor is detached before it reaches
+    a kernel (the kernels refuse autograd inputs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bidx, seg, rblk, bs, T, scale):

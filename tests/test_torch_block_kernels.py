@@ -187,6 +187,49 @@ def test_plain_versions_match_pallas_interpret():
                                    **KERNEL_TOL)
 
 
+# The fused backward's edge cases of the card's checks, at smoke size:
+# S = 64 exactly (4 blocks of 16) and bs 3 (S = 21, not a multiple of 4)
+# with a ragged last block and empty slots.  (inputs, Pallas tile rows)
+BWD_EDGE_CASES = {
+    "S64 NB4 bs16 ragged two segs": (dict(B=1, H=2, NB=4, bs=16, T=100,
+                                          ragged=True, two_segs=True,
+                                          empty=1), 32),
+    "bs3 S21 ragged empty": (dict(B=2, H=2, NB=7, bs=3, T=50, ragged=True,
+                                  empty=3), 21),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_EDGE_CASES))
+def test_plain_backward_matches_pallas_interpret(case):
+    """#7/#8's plain version against ``mosa_block_attention_bwd_pallas`` in
+    interpret mode, on g~ (zero on invalid query rows), lse and delta from
+    the Pallas training forward; fp32 within ``KERNEL_TOL``."""
+    kw, tile = BWD_EDGE_CASES[case]
+    q, k, v, bidx, _, seg = _inputs(**kw, seed=11)
+    bs, T = kw["bs"], kw["T"]
+    jseg = jnp.asarray(seg if seg is not None else
+                       np.zeros(q.shape[:3], np.int32))
+    jin = [jnp.asarray(a) for a in (q, k, v, bidx)]
+    tin = [t(a) for a in (q, k, v, bidx)]
+    opts = dict(block_q=tile, block_k=tile, bs=bs, T=T, interpret=True)
+    _, jlse = jblock.mosa_block_attention_fwd_res(
+        *jin, jseg, jnp.ones(bidx.shape, jnp.float32), **opts)
+    o_pre, lse = kblock.mosa_block_attention_fwd_res_ref(*tin, bs, T,
+                                                         seg=_tseg(seg))
+    np.testing.assert_allclose(n(lse), np.asarray(jlse), **KERNEL_TOL)
+    _, ok = kblock.expand_blocks(t(bidx), bs, T)
+    gt = (np.random.default_rng(12).standard_normal(q.shape)
+          .astype(np.float32) * n(ok)[..., None])
+    delta = (gt * n(o_pre)).sum(-1)
+    jgrads = jblock.mosa_block_attention_bwd_pallas(
+        *jin, jseg, jnp.asarray(gt), jlse, jnp.asarray(delta), **opts)
+    tgrads = kblock.mosa_block_attention_bwd_ref(*tin, t(gt), lse, t(delta),
+                                                 bs, T, seg=_tseg(seg))
+    for name, a, b in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(n(a), np.asarray(b), err_msg=name,
+                                   **KERNEL_TOL)
+
+
 @pytest.mark.parametrize("case", ["bs2 empty", "bs4 ragged two segs"])
 def test_function_grads_match_jax_grad(case):
     """``MoSABlockAttentionFunction`` on CPU tensors (the plain versions of

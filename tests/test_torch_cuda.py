@@ -19,7 +19,11 @@ d = 128), to the split kernels, and to itself (two launches equal bit for
 bit); the counters show which route each case takes.  The block-choice
 kernels (#5-#8) and their autograd Function are held to the same
 tolerances at the slice's shape and at the edge cases of ``BLOCK_CASES``;
-at bs = 1, #5 and #6 equal #1 and #2 bit for bit.  The flash kernels #9
+the block backward takes the fused #7 + #8 at S = NB * bs <= 64 (held to
+the plain version, to the split kernels and to itself, two launches equal
+bit for bit) and the split #7 and #8 above; at bs = 1, #5, #6 and the
+fused block backward equal #1, #2 and the fused token backward bit for
+bit.  The flash kernels #9
 and #10 are held to the same tolerances (GQA, q_offset, windows, ragged
 tiles, segments of length 1, a padding tail that must come back as
 zeros), and the window model is served on the card and the CPU with
@@ -402,21 +406,35 @@ def test_scheduler_card_matches_cpu(dev):
         assert torch.equal(rg[rid], rc[rid]), rid
 
 
-# Block choice (#5-#8): (B, H, NB, bs, d, T, empty, two_segs).  The
-# slice's shape (B*H = 2208, NB 2, bs 16, S 32, d 64); bs 4 with a ragged
-# last block (T % bs != 0) and empty blocks; two segments; d 32 and 128;
-# bs 64, wider than the kernels' 32-key tile.
+# Block choice (#5-#8): (B, H, NB, bs, d, T, empty, two_segs[, lone_rows]).
+# The slice's shape (B*H = 2208, NB 2, bs 16, S 32, d 64); bs 4 with a
+# ragged last block (T % bs != 0) and empty blocks; two segments; d 32 and
+# 128; for the fused backward S = 64 exactly, bs 3 (S = 21, not a multiple
+# of 4), bs 1 and rows whose blocks past the first are all empty; bs 64
+# (S = 128), wider than the split kernels' 32-key tile.
 BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
                (2, 3, 9, 4, 64, 101, 6, True),
                (2, 3, 5, 8, 32, 77, 3, True),
                (1, 2, 6, 4, 128, 50, 2, False),
+               (1, 3, 4, 16, 128, 300, 2, True),
+               (2, 3, 7, 3, 64, 50, 5, False),
+               (2, 3, 37, 1, 64, 200, 6, True),
+               (2, 3, 4, 8, 64, 90, 0, False, 3),
                (1, 2, 2, 64, 64, 150, 0, True)]
 
 
-def _block_inputs(dev, B, H, NB, bs, d, T, empty, two_segs, seed=6):
+def _block_route(NB, bs, d):
+    """Launches of (fused, dq, dk/dv) one block backward takes."""
+    from repro_torch.kernels.mosa_backward import fused_bwd_fits
+    return [1, 0, 0] if fused_bwd_fits(NB * bs, d) else [0, 1, 1]
+
+
+def _block_inputs(dev, B, H, NB, bs, d, T, empty, two_segs, lone_rows=0,
+                  seed=6):
     """Per (b, h) NB sorted distinct blocks of a length-T sequence, the
     last (short) block in every row; ``empty`` random slots set to -1 and
-    sorted last, as the layer keeps them."""
+    sorted last, as the layer keeps them; the first ``lone_rows`` (b, h)
+    rows keep their first block alone."""
     g = torch.Generator(device=dev).manual_seed(seed)
     nbt = -(-T // bs)
     perm = torch.rand(B, H, nbt - 1, device=dev, generator=g).argsort(-1)
@@ -429,6 +447,7 @@ def _block_inputs(dev, B, H, NB, bs, d, T, empty, two_segs, seed=6):
                            generator=g)] = -1
         bidx = torch.where(bidx < 0, 2 ** 31 - 1, bidx).sort(-1).values
         bidx = torch.where(bidx == 2 ** 31 - 1, -1, bidx)
+    bidx.view(-1, NB)[:lone_rows, 1:] = -1
     S = NB * bs
     q, k, v = (torch.randn(B, H, S, d, device=dev, generator=g)
                for _ in range(3))
@@ -445,7 +464,9 @@ def _block_inputs(dev, B, H, NB, bs, d, T, empty, two_segs, seed=6):
 @pytest.mark.parametrize("case", BLOCK_CASES)
 def test_block_kernels_match_plain(dev, dtype, case):
     """#5 and #6 against their plain versions (invalid query rows exact
-    zeros), #7 and #8 on the same g~, lse and delta as theirs."""
+    zeros); the block backward's route (the fused #7 + #8 at S <= 64, the
+    split pair above) and the split #7 and #8, called directly, on the
+    same g~, lse and delta as theirs."""
     from repro_torch.kernels import mosa_block as kb
     q, k, v, bidx, rblk, seg, gout = _block_inputs(dev, *case)
     bs, T = case[3], case[5]
@@ -453,8 +474,8 @@ def test_block_kernels_match_plain(dev, dtype, case):
     qf, kf, vf = q.float(), k.float(), v.float()
     tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
     _, ok = kb.expand_blocks(bidx, bs, T)
-    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_DQ,
-                kb.LAUNCHES_DKV)
+    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_BWD,
+                kb.LAUNCHES_DQ, kb.LAUNCHES_DKV)
     before = [c.count for c in counters]
 
     got = kb.mosa_block_attention_cuda(q, k, v, bidx, rblk, bs, T, seg=seg)
@@ -473,17 +494,66 @@ def test_block_kernels_match_plain(dev, dtype, case):
 
     gt = torch.where(ok[..., None], gout, 0.0).contiguous()
     delta = (gt * want_o).sum(-1).contiguous()
-    dq = kb.mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, want_lse,
-                                             delta, bs, T, seg=seg)
-    dk, dv = kb.mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt,
-                                                  want_lse, delta, bs, T,
-                                                  seg=seg)
+    args = (q, k, v, bidx, gt, want_lse, delta, bs, T)
+    routed = kb.mosa_block_attention_bwd_cuda(*args, seg=seg)
+    route = [c.count - b for c, b in zip(counters, before)][2:]
+    assert route == _block_route(case[2], bs, case[4])
+    split = ((kb.mosa_block_attention_bwd_dq_cuda(*args, seg=seg),)
+             + kb.mosa_block_attention_bwd_dkv_cuda(*args, seg=seg))
     want_g = kb.mosa_block_attention_bwd_ref(qf, kf, vf, bidx, gt, want_lse,
                                              delta, bs, T, seg=seg)
-    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want_g):
-        assert a.dtype == dtype, name
+    for name, a, s, b in zip(("dq", "dk", "dv"), routed, split, want_g):
+        assert a.dtype == s.dtype == dtype, name
         torch.testing.assert_close(a.float(), b, msg=name, **tol)
-    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+        torch.testing.assert_close(s.float(), b, msg=name, **tol)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [1, 1, route[0], route[1] + 1, route[2] + 1]
+
+
+def _fused_block_bwd_inputs(dev, dtype, case):
+    """The block backward's kernel inputs (q, k, v in ``dtype``; g~, lse
+    and delta from the plain forward in fp32), seg and the plain grads."""
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, bidx, _, seg, gout = _block_inputs(dev, *case)
+    bs, T = case[3], case[5]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _, ok = kb.expand_blocks(bidx, bs, T)
+    o_pre, lse = kb.mosa_block_attention_fwd_res_ref(qf, kf, vf, bidx, bs, T,
+                                                     seg=seg)
+    gt = torch.where(ok[..., None], gout, 0.0).contiguous()
+    delta = (gt * o_pre).sum(-1).contiguous()
+    want = kb.mosa_block_attention_bwd_ref(qf, kf, vf, bidx, gt, lse, delta,
+                                           bs, T, seg=seg)
+    return (q, k, v, bidx, gt, lse, delta, bs, T), seg, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in BLOCK_CASES
+                                  if c[2] * c[3] <= 64])
+def test_fused_block_bwd_matches_plain_and_is_deterministic(dev, dtype,
+                                                            case):
+    """The fused #7 + #8 against the plain version; two launches equal bit
+    for bit (no atomics, a fixed order)."""
+    from repro_torch.kernels import mosa_block as kb
+    args, seg, want = _fused_block_bwd_inputs(dev, dtype, case)
+    before = kb.LAUNCHES_BWD.count
+    got = kb.mosa_block_attention_bwd_fused_cuda(*args, seg=seg)
+    again = kb.mosa_block_attention_bwd_fused_cuda(*args, seg=seg)
+    assert kb.LAUNCHES_BWD.count == before + 2
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype, name
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
+                                   rtol=_tol(dtype), msg=name)
+
+
+def test_fused_block_bwd_refuses_rows_past_one_tile(dev):
+    from repro_torch.kernels import mosa_block as kb
+    args, seg, _ = _fused_block_bwd_inputs(dev, torch.float32,
+                                           BLOCK_CASES[-1])
+    with pytest.raises(ValueError, match="S <= 64"):
+        kb.mosa_block_attention_bwd_fused_cuda(*args, seg=seg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -497,13 +567,14 @@ def test_block_autograd_function_matches_autograd_of_plain(dev, dtype, case):
     bs, T = case[3], case[5]
     q, k, v = (x.to(dtype) for x in (q, k, v))
     leaves = [x.clone().requires_grad_() for x in (q, k, v, rblk)]
-    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_DQ,
-                kb.LAUNCHES_DKV)
+    counters = (kb.LAUNCHES, kb.LAUNCHES_FWD_RES, kb.LAUNCHES_BWD,
+                kb.LAUNCHES_DQ, kb.LAUNCHES_DKV)
     before = [c.count for c in counters]
     out = kb.mosa_block_attention(*leaves[:3], bidx, leaves[3], bs, T,
                                   seg=seg)
     got = torch.autograd.grad((out.float() * gout).sum(), leaves)
-    assert [c.count - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [0, 1] + _block_route(case[2], bs, case[4])
     ref = [x.detach().float().requires_grad_() for x in (q, k, v, rblk)]
     want_out = kb.mosa_block_attention_ref(*ref[:3], bidx, ref[3], bs, T,
                                            seg=seg)
@@ -529,6 +600,30 @@ def test_block_kernels_at_bs1_equal_token_kernels(dev):
     blk = kb.mosa_block_attention_fwd_res_cuda(q, k, v, idx, 1, T, seg=seg)
     tok = km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg)
     assert all(torch.equal(a, b) for a, b in zip(blk, tok))
+
+
+def test_fused_block_bwd_at_bs1_equals_fused_token_bwd(dev):
+    """At bs = 1 the fused block backward stages the same values and runs
+    the same float operations as the fused token backward: bit for bit
+    equal on the same g~, lse and delta, in fp32 and bf16."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kbwd
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, idx, r, seg, gout = _train_inputs(dev, *TRAIN_CASES[1])
+    idx = torch.where(idx < 0, 2 ** 31 - 1, idx).sort(-1).values
+    idx = torch.where(idx == 2 ** 31 - 1, -1, idx).to(torch.int32)
+    o_pre, lse = km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg)
+    gt = (gout * r[..., None]).contiguous()
+    delta = (gt * o_pre).sum(-1).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        blk = kb.mosa_block_attention_bwd_fused_cuda(qq, kk, vv, idx, gt,
+                                                     lse, delta, 1, 200,
+                                                     seg=seg)
+        tok = kbwd.mosa_attention_bwd_fused_cuda(qq, kk, vv, idx, gt, lse,
+                                                 delta, seg=seg)
+        for name, a, b in zip(("dq", "dk", "dv"), blk, tok):
+            assert torch.equal(a, b), (name, dtype)
 
 
 def test_block_choice_serving_card_matches_cpu(dev):
