@@ -10,31 +10,40 @@ Phases (any failure raises, so the script exits nonzero):
   2. build the hand-written kernels from ``src/repro_torch/csrc`` (nvcc);
   3. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the slices' shapes and at edge cases (TF32 is
-     switched off for the plain versions' matmuls): MoSA attention, its
-     training forward (o_pre, lse), the fused backward (dq, dk, dv in one
-     launch, every case with S <= 64, S = 1 and S = 64 at d 32 and 128
-     included; two launches bitwise equal) and the split dq and dk/dv
-     kernels (every case, S = 70 included), the autograd Function that
-     joins them (grads of q, k, v and r against autograd of the plain
-     version; the fused route at S <= 64, the split one above, checked by
-     the counters), paged decode and packed paged
+     switched off for the plain versions' matmuls): MoSA attention and its
+     training forward (o_pre, lse) on both routes (the one-row kernel on
+     every case with S <= 64, the streaming kernel, called directly, on
+     every case, S = 65 and 70 included; the routed call gives its route's
+     bits; two launches of each route bitwise equal), the fused backward
+     (dq, dk, dv in one launch, every case with S <= 64, S = 1 and S = 64
+     at d 32 and 128 included; two launches bitwise equal) and the split dq
+     and dk/dv kernels (every case), the autograd Function that joins them
+     (grads of q, k, v and r against autograd of the plain version; the
+     fused route at S <= 64, the split one above, checked by the
+     counters), paged decode and packed paged
      prefill (padding tokens and inactive segments exact zeros; cases
      across its key splits of 128: pasts on, one before and one after a
      split boundary, a token at the deepest position, prefix blocks shared
      across a split, R = 3; two launches bitwise equal), and the
-     block-choice kernels (#5, #6, the fused #7 + #8 on every case with
-     S = NB * bs <= 64, two launches bitwise equal, and the split #7 and
-     #8, called directly, on every case) and their autograd Function (the
-     fused route at S <= 64, the split one above, checked by the counters)
-     at the block slice's shape and at edge cases (a ragged last block,
-     empty blocks, two segments, d 32 and 128, S = 64, bs 3 with S not a
-     multiple of 4, bs 1, rows with only block 0, bs 64), plus #5/#6 and
-     the fused block backward at bs = 1 against #1/#2 and the fused token
-     backward (bitwise equality reported), and the flash kernels #9
-     and #10 (GQA, Tq < Tk through q_offset, windows, ragged tiles, d 36
-     and 128, segments of length 1, a padding tail that must be zeros);
+     block-choice kernels (#5 and #6 on both routes as #1 and #2, invalid
+     query rows exact zeros; the fused #7 + #8 on every case with S = NB *
+     bs <= 64, two launches bitwise equal, and the split #7 and #8, called
+     directly, on every case) and their autograd Function (the fused route
+     at S <= 64, the split one above, checked by the counters) at the block
+     slice's shape and at edge cases (a ragged last block, empty blocks,
+     two segments, d 32 and 128, S = 64, bs 3 with S not a multiple of 4,
+     bs 1, rows with only block 0, bs 64, S = 65 as 5 blocks of 13), plus
+     #5/#6 at bs = 1 against #1/#2 on both routes and the fused block
+     backward against the fused token backward (each pair bit for bit
+     equal, or the phase fails), and the flash kernels #9 and #10 (GQA, Tq
+     < Tk through q_offset, windows, ragged tiles, Tq not a multiple of
+     the 64-row tile with the window's edge inside a key tile, d 36 and
+     128, segments of length 1, a padding tail that must be zeros; two
+     launches bitwise equal);
   4. time each kernel, its plain version and one PyTorch yardstick call
-     with CUDA events (L2 flushed before every timed launch); also the
+     with CUDA events (L2 flushed before every timed launch); #1, #2, #5
+     and #6 on the route the slice takes (the one-row kernel) with the
+     streaming kernel beside it (``stream_ms``); also the
      autograd Functions' backward prologues (g~, dr, delta; token and
      block choice) on their own, and
      packed prefill at a second shape (one 256-token segment at past 768,
@@ -244,6 +253,38 @@ def check_case(torch, kernel, plain, name, case, errs, parts=None,
                 f"(atol {atol:.2e}, rtol {rtol:.2e})")
 
 
+def check_fwd_routes(torch, name, case, routed, row, stream, S, d):
+    """A forward kernel's routes on one case of S selected tokens of width
+    d, in fp32 and bf16: the routed wrapper gives the bits of the route it
+    takes (the one-row kernel where the row fits, else the streaming one),
+    two launches of each route are bitwise equal, and at S <= 32 (one key
+    tile of the streaming kernel, so the same float operations) the two
+    routes agree bit for bit.  Each of ``routed``, ``row``, ``stream`` maps
+    a dtype to the output (a tensor or a tuple)."""
+    from repro_torch.kernels.mosa_attention import row_fits
+    fits = row_fits(S, d)
+    def same(a, b):
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for dt in (torch.float32, torch.bfloat16):
+        want = (row if fits else stream)(dt)
+        if not same(routed(dt), want):
+            raise AssertionError(f"{name} ({case}, {dt}): the routed call is "
+                                 "not its route's output")
+        for fn in ((row, stream) if fits else (stream,)):
+            if not same(fn(dt), fn(dt)):
+                raise AssertionError(f"{name} ({case}, {dt}): two launches "
+                                     "differ")
+        if S <= 32 and not same(want, stream(dt)):
+            raise AssertionError(f"{name} ({case}, {dt}): the one-row and "
+                                 "streaming kernels differ at S <= 32")
+    log(f"  {name:31s} {case:40s} routed to the "
+        f"{'one-row' if fits else 'streaming'} kernel; two launches of "
+        "each route bitwise equal (fp32, bf16)"
+        + ("; the routes bitwise equal" if S <= 32 else ""))
+
+
 # ----------------------------------------------------------------- inputs
 def mosa_inputs(torch, B, H, S, d, T, dev, gen, neg_keys=0, zero_rows=0,
                 with_seg=False):
@@ -298,6 +339,9 @@ MOSA_CASES = {
         B=1, H=3, S=64, d=128, T=300, neg_keys=4, zero_rows=3,
         with_seg=True),
     "S=64 d=32, idx=-1 keys": dict(B=2, H=2, S=64, d=32, T=300, neg_keys=12),
+    # the first S past the one-row kernels (streaming forward, split bwd)
+    "S=65 d=128, seg": dict(B=1, H=3, S=65, d=128, T=300, neg_keys=4,
+                            zero_rows=3, with_seg=True),
 }
 
 
@@ -314,13 +358,24 @@ def check_train_kernels(torch, dev, gen, errs):
     for case, kw in MOSA_CASES.items():
         q, k, v, idx, r, seg = mosa_inputs(torch, dev=dev, gen=gen, **kw)
         g = torch.randn(q.shape, device=dev, generator=gen)
-        check_case(
-            torch,
-            lambda dt: kmosa.mosa_attention_fwd_res_cuda(
-                q.to(dt), k.to(dt), v.to(dt), idx, seg=seg),
-            lambda dt: kmosa.mosa_attention_fwd_res_ref(
-                *(t.to(dt).float() for t in (q, k, v)), idx, seg=seg),
-            "mosa_attention_fwd_res", case, errs, ("o_pre", "lse"))
+
+        def on(fn):
+            return lambda dt: fn(q.to(dt), k.to(dt), v.to(dt), idx, seg=seg)
+
+        def plain_fwd(dt):
+            return kmosa.mosa_attention_fwd_res_ref(
+                *(t.to(dt).float() for t in (q, k, v)), idx, seg=seg)
+
+        check_case(torch, on(kmosa.mosa_attention_fwd_res_cuda), plain_fwd,
+                   "mosa_attention_fwd_res", case, errs, ("o_pre", "lse"))
+        check_case(torch, on(kmosa.mosa_attention_fwd_res_stream_cuda),
+                   plain_fwd, "mosa_attention_fwd_res[stream]", case, errs,
+                   ("o_pre", "lse"))
+        check_fwd_routes(torch, "mosa_attention_fwd_res", case,
+                         on(kmosa.mosa_attention_fwd_res_cuda),
+                         on(kmosa.mosa_attention_fwd_res_row_cuda),
+                         on(kmosa.mosa_attention_fwd_res_stream_cuda),
+                         kw["S"], kw["d"])
 
         def bwd(fn, dt, cast):
             qq, kk, vv = (cast(t.to(dt)) for t in (q, k, v))
@@ -416,6 +471,9 @@ BLOCK_CASES = {
                                    lone_rows=3),
     "bs=64, wider than a key tile": dict(B=1, H=2, NB=2, bs=64, d=64, T=150,
                                          two_segs=True),
+    # the first S past the one-row kernels at d 128 (streaming forward)
+    "S=65 (NB=5 bs=13) d=128, empty": dict(B=1, H=2, NB=5, bs=13, d=128,
+                                           T=100, empty=1),
 }
 
 
@@ -473,23 +531,40 @@ def check_block_kernels(torch, dev, gen, errs):
                                      "not zero")
             return out
 
-        check_case(
-            torch,
-            lambda dt: zeros_outside(kb.mosa_block_attention_cuda(
-                q.to(dt), k.to(dt), v.to(dt), bidx, rblk, bs, T, seg=seg),
-                "mosa_block_attention"),
-            lambda dt: kb.mosa_block_attention_ref(
-                *(x.to(dt).float() for x in (q, k, v)), bidx, rblk, bs, T,
-                seg=seg),
-            "mosa_block_attention", case, errs)
-        check_case(
-            torch,
-            lambda dt: kb.mosa_block_attention_fwd_res_cuda(
-                q.to(dt), k.to(dt), v.to(dt), bidx, bs, T, seg=seg),
-            lambda dt: kb.mosa_block_attention_fwd_res_ref(
-                *(x.to(dt).float() for x in (q, k, v)), bidx, bs, T,
-                seg=seg),
-            "mosa_block_attention_fwd_res", case, errs, ("o_pre", "lse"))
+        def on(fn, *rb):
+            return lambda dt: fn(q.to(dt), k.to(dt), v.to(dt), bidx, *rb, bs,
+                                 T, seg=seg)
+
+        S, d = kw["NB"] * bs, kw["d"]
+        for route in ("", "_stream"):
+            fwd = getattr(kb, f"mosa_block_attention{route}_cuda")
+            check_case(
+                torch,
+                lambda dt: zeros_outside(on(fwd, rblk)(dt),
+                                         "mosa_block_attention"),
+                lambda dt: kb.mosa_block_attention_ref(
+                    *(x.to(dt).float() for x in (q, k, v)), bidx, rblk, bs,
+                    T, seg=seg),
+                f"mosa_block_attention{route and '[stream]'}", case, errs)
+            res = getattr(kb, f"mosa_block_attention_fwd_res{route}_cuda")
+            check_case(
+                torch,
+                lambda dt: tuple(zeros_outside(x, "fwd_res") if i == 0 else x
+                                 for i, x in enumerate(on(res)(dt))),
+                lambda dt: kb.mosa_block_attention_fwd_res_ref(
+                    *(x.to(dt).float() for x in (q, k, v)), bidx, bs, T,
+                    seg=seg),
+                f"mosa_block_attention_fwd_res{route and '[stream]'}", case,
+                errs, ("o_pre", "lse"))
+        check_fwd_routes(torch, "mosa_block_attention", case,
+                         on(kb.mosa_block_attention_cuda, rblk),
+                         on(kb.mosa_block_attention_row_cuda, rblk),
+                         on(kb.mosa_block_attention_stream_cuda, rblk), S, d)
+        check_fwd_routes(torch, "mosa_block_attention_fwd_res", case,
+                         on(kb.mosa_block_attention_fwd_res_cuda),
+                         on(kb.mosa_block_attention_fwd_res_row_cuda),
+                         on(kb.mosa_block_attention_fwd_res_stream_cuda), S,
+                         d)
 
         def bwd(fn, dt, cast):
             qq, kk, vv = (cast(x.to(dt)) for x in (q, k, v))
@@ -564,9 +639,9 @@ def check_block_kernels(torch, dev, gen, errs):
 def check_block_bs1(torch, dev, gen):
     """#5, #6 and the fused block backward at bs = 1 against #1, #2 and
     the fused token backward on the same inputs (the backward on the same
-    g~, lse and delta): the block kernels stage the same values and run the
-    same float operations, so they should agree bit for bit; anything else
-    must stay within the fp32 tolerance."""
+    g~, lse and delta), the forwards on both routes: the block kernels
+    stage the same values and run the same float operations, so each pair
+    must agree bit for bit."""
     from repro_torch.kernels import mosa_attention as km
     from repro_torch.kernels import mosa_backward as kbwd
     from repro_torch.kernels import mosa_block as kb
@@ -576,25 +651,35 @@ def check_block_bs1(torch, dev, gen):
     gt = (torch.randn(q.shape, device=dev, generator=gen)
           * r[..., None]).contiguous()
     delta = (gt * o_pre).sum(-1).contiguous()
-    pairs = [
-        ("#5 vs #1", kb.mosa_block_attention_cuda(q, k, v, idx, r, 1, 200,
-                                                  seg=seg),
-         km.mosa_attention_cuda(q, k, v, idx, r, seg=seg)),
-        ("#6 vs #2", torch.cat([t.flatten() for t in
-                                kb.mosa_block_attention_fwd_res_cuda(
-                                    q, k, v, idx, 1, 200, seg=seg)]),
-         torch.cat([t.flatten() for t in km.mosa_attention_fwd_res_cuda(
-             q, k, v, idx, seg=seg)])),
-        ("fused block bwd vs fused token bwd",
-         torch.cat([t.flatten() for t in
-                    kb.mosa_block_attention_bwd_fused_cuda(
-                        q, k, v, idx, gt, lse, delta, 1, 200, seg=seg)]),
-         torch.cat([t.flatten() for t in kbwd.mosa_attention_bwd_fused_cuda(
-             q, k, v, idx, gt, lse, delta, seg=seg)]))]
+
+    def flat(ts):
+        return torch.cat([t.flatten() for t in ts])
+
+    pairs = []
+    for route in ("row", "stream"):
+        pairs += [
+            (f"#5 vs #1 ({route})",
+             getattr(kb, f"mosa_block_attention_{route}_cuda")(
+                 q, k, v, idx, r, 1, 200, seg=seg),
+             getattr(km, f"mosa_attention_{route}_cuda")(
+                 q, k, v, idx, r, seg=seg)),
+            (f"#6 vs #2 ({route})",
+             flat(getattr(kb, f"mosa_block_attention_fwd_res_{route}_cuda")(
+                 q, k, v, idx, 1, 200, seg=seg)),
+             flat(getattr(km, f"mosa_attention_fwd_res_{route}_cuda")(
+                 q, k, v, idx, seg=seg)))]
+    pairs.append((
+        "fused block bwd vs fused token bwd",
+        flat(kb.mosa_block_attention_bwd_fused_cuda(q, k, v, idx, gt, lse,
+                                                    delta, 1, 200, seg=seg)),
+        flat(kbwd.mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta,
+                                                seg=seg))))
     for name, a, b in pairs:
         e = max_err(torch, a, b, FP32_TOL, FP32_TOL)
         log(f"  bs=1 {name}: bitwise equal {torch.equal(a, b)}, max|err| "
             f"{e:.3e}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"bs=1 {name}: not bit for bit equal")
 
 
 # Packed prefill (#12): segments (row, past, len), row -1 inactive; the
@@ -698,6 +783,7 @@ def check_prefill_kernel(torch, dev, gen, errs):
 
 
 def check_kernels(torch, dev):
+    from repro_torch.kernels import mosa_attention as km
     from repro_torch.kernels.mosa_attention import (mosa_attention_cuda,
                                                     mosa_attention_ref)
     from repro_torch.serve.paged_attention import (paged_attention_cuda,
@@ -707,13 +793,24 @@ def check_kernels(torch, dev):
 
     for case, kw in MOSA_CASES.items():
         q, k, v, idx, r, seg = mosa_inputs(torch, dev=dev, gen=gen, **kw)
-        check_case(
-            torch,
-            lambda dt: mosa_attention_cuda(q.to(dt), k.to(dt), v.to(dt), idx,
-                                           r, seg=seg),
-            lambda dt: mosa_attention_ref(*(t.to(dt).float() for t in (q, k, v)),
-                                          idx, r, seg=seg),
-            "mosa_attention", case, errs)
+
+        def on(fn):
+            return lambda dt: fn(q.to(dt), k.to(dt), v.to(dt), idx, r,
+                                 seg=seg)
+
+        def plain(dt):
+            return mosa_attention_ref(*(t.to(dt).float() for t in (q, k, v)),
+                                      idx, r, seg=seg)
+
+        check_case(torch, on(mosa_attention_cuda), plain, "mosa_attention",
+                   case, errs)
+        check_case(torch, on(km.mosa_attention_stream_cuda), plain,
+                   "mosa_attention[stream]", case, errs)
+        check_fwd_routes(torch, "mosa_attention", case,
+                         on(mosa_attention_cuda),
+                         on(km.mosa_attention_row_cuda),
+                         on(km.mosa_attention_stream_cuda), kw["S"],
+                         kw["d"])
     check_train_kernels(torch, dev, gen, errs)
 
     paged_cases = {
@@ -750,8 +847,8 @@ def time_kernels(torch, dev):
     PyTorch call computing the same attention (``library_ms``, a yardstick
     the port never calls), plus the bound from bytes and operations."""
     import torch.nn.functional as F
-    from repro_torch.kernels.mosa_attention import (mosa_attention_cuda,
-                                                    mosa_attention_ref)
+    from repro_torch.kernels.mosa_attention import (
+        mosa_attention_cuda, mosa_attention_ref, mosa_attention_stream_cuda)
     from repro_torch.serve.paged_attention import (paged_attention_cuda,
                                                    paged_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -767,6 +864,8 @@ def time_kernels(torch, dev):
     out["mosa_attention"] = dict(
         ms=time_ms(torch, lambda: mosa_attention_cuda(q, k, v, idx, r),
                    flush=flush),
+        stream_ms=time_ms(torch, lambda: mosa_attention_stream_cuda(
+            q, k, v, idx, r), flush=flush),
         plain_ms=time_ms(torch, lambda: mosa_attention_ref(q, k, v, idx, r),
                          flush=flush),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -812,10 +911,12 @@ def time_kernels(torch, dev):
         t_ops = t["flops"] / FP32_FLOP_PER_S * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        stream = (f"  streaming route {t['stream_ms']:.4f} ms"
+                  if "stream_ms" in t else "")
         log(f"  {name:24s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f}"
             f" ms  library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f}"
             f" ms ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB, "
-            f"{t['flops'] / 1e9:.3f} GFLOP)")
+            f"{t['flops'] / 1e9:.3f} GFLOP){stream}")
     # #12's two launches apart, after every event timing: a profiler
     # session slows the event timings that follow it
     for name, call in prefill_calls.items():
@@ -944,6 +1045,9 @@ def time_block_kernels(torch, dev, gen, flush):
         "mosa_block_attention": dict(
             ms=time_ms(torch, lambda: kb.mosa_block_attention_cuda(
                 q, k, v, bidx, rblk, bs, T), flush=flush),
+            stream_ms=time_ms(
+                torch, lambda: kb.mosa_block_attention_stream_cuda(
+                    q, k, v, bidx, rblk, bs, T), flush=flush),
             plain_ms=time_ms(torch, lambda: kb.mosa_block_attention_ref(
                 q, k, v, bidx, rblk, bs, T), flush=flush),
             library_ms=sdpa_ms, bytes=4 * vec + 2 * blk,
@@ -951,6 +1055,9 @@ def time_block_kernels(torch, dev, gen, flush):
         "mosa_block_attention_fwd_res": dict(
             ms=time_ms(torch, lambda: kb.mosa_block_attention_fwd_res_cuda(
                 q, k, v, bidx, bs, T), flush=flush),
+            stream_ms=time_ms(
+                torch, lambda: kb.mosa_block_attention_fwd_res_stream_cuda(
+                    q, k, v, bidx, bs, T), flush=flush),
             plain_ms=time_ms(torch, lambda: kb.mosa_block_attention_fwd_res_ref(
                 q, k, v, bidx, bs, T), flush=flush),
             library_ms=sdpa_ms, bytes=4 * vec + row + blk,
@@ -980,7 +1087,8 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     (g~, dr, delta; ``kernels/mosa_vjp.py``) on its own."""
     import torch.nn.functional as F
     from repro_torch.kernels.mosa_attention import (
-        mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref)
+        mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref,
+        mosa_attention_fwd_res_stream_cuda)
     from repro_torch.kernels.mosa_backward import (
         mosa_attention_bwd_dkv_cuda, mosa_attention_bwd_dq_cuda,
         mosa_attention_bwd_fused_cuda, mosa_attention_bwd_ref)
@@ -1017,6 +1125,9 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
         "mosa_attention_fwd_res": dict(
             ms=time_ms(torch, lambda: mosa_attention_fwd_res_cuda(
                 q, k, v, idx), flush=flush),
+            stream_ms=time_ms(
+                torch, lambda: mosa_attention_fwd_res_stream_cuda(
+                    q, k, v, idx), flush=flush),
             plain_ms=time_ms(torch, lambda: mosa_attention_fwd_res_ref(
                 q, k, v, idx), flush=flush),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1804,6 +1915,9 @@ FLASH_CHECK_CASES = {
     "Tq 1 < Tk 300 (q_offset), W=64, GQA 4/2": (1, 4, 2, 1, 300, 64, 64),
     "Tq 77 < Tk 200, d=36, W=0": (2, 4, 2, 77, 200, 36, 0),
     "d=128, W=128, T=256": (2, 2, 2, 256, 256, 128, 128),
+    # Tq not a multiple of the 64-row tile, the window edge inside key tiles
+    "Tq 200, W=100, GQA 4/2": (2, 4, 2, 200, 200, 64, 100),
+    "Tq 150 < Tk 290, W=70": (1, 2, 2, 150, 290, 64, 70),
 }
 # #10 cases: (segment lengths, total, Hq, Hkv, d, window); total past the
 # last segment is a padding tail (must come back as zeros)
@@ -1833,7 +1947,7 @@ def varlen_inputs(torch, dev, gen, lens, total, Hq, Hkv, d):
 
 def check_flash_kernels(torch, dev, gen, errs):
     """#9 and #10 against their plain versions (fp32 and bf16); the varlen
-    padding tail must be exact zeros."""
+    padding tail must be exact zeros; two launches bitwise equal."""
     from repro_torch.kernels import flash_attention as kf
     for case, (B, Hq, Hkv, Tq, Tk, d, W) in FLASH_CHECK_CASES.items():
         q = torch.randn(B, Hq, Tq, d, device=dev, generator=gen)
@@ -1846,6 +1960,9 @@ def check_flash_kernels(torch, dev, gen, errs):
             lambda dt: kf.flash_attention_ref(
                 *(x.to(dt).float() for x in (q, k, v)), window=W),
             "flash_attention", case, errs)
+        check_twice(torch, "flash_attention", case,
+                    lambda dt: kf.flash_attention_cuda(
+                        q.to(dt), k.to(dt), v.to(dt), window=W))
     for case, spec in VARLEN_CHECK_CASES.items():
         if spec[0] == "slice":
             lens = varlen_slice_lengths()
@@ -1867,6 +1984,16 @@ def check_flash_kernels(torch, dev, gen, errs):
             lambda dt: kf.flash_attention_varlen_ref(
                 *(x.to(dt).float() for x in (q, k, v)), cu, window=W),
             "flash_attention_varlen", case, errs)
+        check_twice(torch, "flash_attention_varlen", case, kernel)
+
+
+def check_twice(torch, name, case, kernel):
+    """Two launches of ``kernel(dtype)`` bitwise equal, fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        if not torch.equal(kernel(dt), kernel(dt)):
+            raise AssertionError(f"{name} ({case}, {dt}): two launches "
+                                 "differ")
+    log(f"  {name:31s} {case:40s} two launches bitwise equal (fp32, bf16)")
 
 
 def flash_pairs(q_pos, k_pos, window):
@@ -2349,7 +2476,9 @@ def main():
                     ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"],
                     bound_by=times[name]["bound_by"],
-                    library_ms=times[name]["library_ms"])
+                    library_ms=times[name]["library_ms"],
+                    **{k: times[name][k] for k in ("stream_ms",)
+                       if k in times[name]})
                for name, (src, rep) in sources.items()]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": {

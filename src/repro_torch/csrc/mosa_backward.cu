@@ -64,7 +64,8 @@
 // kernel:
 //
 //   * stages the row's q, k, v (in their dtype) and g~ (fp32) in shared
-//     memory with cp.async 16-byte copies (cp.async.cg.shared.global; 4-byte
+//     memory (mosa_row.cuh's RowStage and fetch_row, which the one-row
+//     forward in mosa_attention.cu shares) with cp.async 16-byte copies (cp.async.cg.shared.global; 4-byte
 //     copies for lse, delta, idx and seg), rows at a padded stride of
 //     d + 16 bytes' worth of elements, which keeps 16-byte alignment and
 //     spreads neighbouring rows over the banks.  The copy is a pure copy:
@@ -118,6 +119,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mosa_row.cuh"
 
 namespace {
 
@@ -127,11 +129,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockRows = 64;  // owned rows (queries or keys) per block
 constexpr int kBlockStream = 32;  // streamed rows per tile (one per lane)
-
-__device__ __forceinline__ bool pair_ok(int idx_q, int seg_q, int idx_k,
-                                        int seg_k) {
-  return idx_k >= 0 && idx_q >= idx_k && seg_q == seg_k;
-}
 
 // ---------------------------------------------------------------- dq
 size_t dq_smem_bytes(int rows, int d) {
@@ -444,120 +441,10 @@ int dkv_dtype(int dtype, const void* q, const void* k, const void* v,
 
 
 // ------------------------------------------------- fused dq, dk, dv (S <= 64)
-constexpr int kFusedThreads = 128;
-constexpr int kFusedMaxS = 64;
-constexpr int kMaxD = 128;
-
-// Shared-memory layout of the fused kernel for one (S, d, element size,
-// mode).  Sp = S rounded up to 4, dpad = d rounded up to 4 (the width the
-// products run over), row strides of 16 bytes' worth of elements past the
-// rounded width; ps = the row stride of P, dS and dS^T.  Block choice
-// stages one more int per row (the query positions).
-struct FusedLayout {
-  int Sp, dpad, dsT, dsF, ps;
-  size_t stage_bytes, scratch_bytes;
-};
-
-__host__ __device__ inline FusedLayout fused_layout(int S, int d, int tsize,
-                                                    bool block) {
-  FusedLayout L;
-  const int vT = 16 / tsize;
-  L.Sp = (S + 3) / 4 * 4;
-  L.dpad = (d + 3) / 4 * 4;
-  L.dsT = (d + vT - 1) / vT * vT + vT;
-  L.dsF = L.dpad + 4;
-  L.ps = L.Sp + 4;
-  L.stage_bytes = static_cast<size_t>(L.Sp) *
-                  (3 * L.dsT * tsize + L.dsF * 4 + (block ? 5 : 4) * 4);
-  L.scratch_bytes = 3 * sizeof(float) * static_cast<size_t>(L.Sp) * L.ps;
-  return L;
-}
-
-// The staged row: q, k, v [Sp][dsT] (dtype T), g~ [Sp][dsF], lse, delta,
-// idx (each row's key position, -1 = not a key) and seg [Sp], and pos
-// (each row's query position): its own [Sp] array in block choice, where
-// an invalid row keeps its raw position as a query; idx itself in token
-// choice.  Block choice copies the row's block table (NB ints) to `table`,
-// the start of P's scratch, and expands it into idx and pos before phase
-// A writes P.
+// The row's staging (RowLayout, RowStage, fetch_row) is mosa_row.cuh's,
+// shared with the one-row forward.
 template <typename T, bool kBlock>
-struct Stage {
-  T *q, *k, *v;
-  float *g, *lse, *delta;
-  int *idx, *seg, *pos, *table;
-
-  __device__ Stage(unsigned char* base, const FusedLayout& L) {
-    const size_t n = static_cast<size_t>(L.Sp) * L.dsT;
-    q = reinterpret_cast<T*>(base);
-    k = q + n;
-    v = k + n;
-    g = reinterpret_cast<float*>(v + n);
-    lse = g + static_cast<size_t>(L.Sp) * L.dsF;
-    delta = lse + L.Sp;
-    idx = reinterpret_cast<int*>(delta + L.Sp);
-    seg = idx + L.Sp;
-    pos = kBlock ? seg + L.Sp : idx;
-    table = reinterpret_cast<int*>(base + L.stage_bytes);
-  }
-};
-
-// Start the copies of row `row` into `st` (16-byte cp.async when `vec`,
-// else plain loads), uncommitted.
-template <typename T, bool kBlock>
-__device__ void fetch_row(const Stage<T, kBlock>& st, const FusedLayout& L,
-                          const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ gt,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const int* __restrict__ idx,
-                          const int* __restrict__ seg, size_t row, int S,
-                          int d, bool vec, int bs) {
-  const size_t base = row * S;
-  const T* qb = q + base * d;
-  const T* kb = k + base * d;
-  const T* vb = v + base * d;
-  const float* gb = gt + base * d;
-  if (vec) {
-    constexpr int kV = 16 / sizeof(T);
-    const int cpr = d / kV;
-    for (int i = threadIdx.x; i < S * cpr; i += kFusedThreads) {
-      const int r = i / cpr;
-      const int c = (i - r * cpr) * kV;
-      cp_async16(st.q + r * L.dsT + c, qb + r * d + c);
-      cp_async16(st.k + r * L.dsT + c, kb + r * d + c);
-      cp_async16(st.v + r * L.dsT + c, vb + r * d + c);
-    }
-    const int cprf = d / 4;
-    for (int i = threadIdx.x; i < S * cprf; i += kFusedThreads) {
-      const int r = i / cprf;
-      const int c = (i - r * cprf) * 4;
-      cp_async16(st.g + r * L.dsF + c, gb + r * d + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < S * d; i += kFusedThreads) {
-      const int r = i / d;
-      const int c = i - r * d;
-      st.q[r * L.dsT + c] = qb[i];
-      st.k[r * L.dsT + c] = kb[i];
-      st.v[r * L.dsT + c] = vb[i];
-      st.g[r * L.dsF + c] = gb[i];
-    }
-  }
-  for (int i = threadIdx.x; i < S; i += kFusedThreads) {
-    cp_async4(st.lse + i, lse + base + i);
-    cp_async4(st.delta + i, delta + base + i);
-    if constexpr (kBlock) {
-      if (i < S / bs) cp_async4(st.table + i, idx + row * (S / bs) + i);
-    } else {
-      cp_async4(st.idx + i, idx + base + i);
-    }
-    if (seg) cp_async4(st.seg + i, seg + base + i);
-  }
-}
-
-template <typename T, bool kBlock>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowThreads)
 mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ idx,
                       const int* __restrict__ seg,
@@ -568,8 +455,8 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float scale, bool vec, int bs, int seq_len) {
   extern __shared__ float4 fused_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(fused_smem);
-  const FusedLayout L = fused_layout(S, d, sizeof(T), kBlock);
-  const Stage<T, kBlock> st(smem, L);
+  const RowLayout L = row_layout(S, d, sizeof(T), kBlock, true);
+  const RowStage<T, kBlock, true> st(smem, L);
   float* P = reinterpret_cast<float*>(smem + L.stage_bytes);
   float* dS = P + L.Sp * L.ps;
   float* dSt = dS + L.Sp * L.ps;
@@ -581,36 +468,19 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Start the row's copies, then zero the padding (rows S..Sp-1, columns
   // d..dpad-1), which the copies never write.  Without seg every key is in
   // segment 0.  Block choice then expands the staged block table (sel_pos).
-  fetch_row(st, L, q, k, v, gt, lse, delta, idx, seg, row, S, d, vec, bs);
+  fetch_row(st, L, q, k, v, gt, lse, delta, nullptr, idx, seg, row, S, d,
+            vec, bs);
   cp_async_commit();
-  if (S < L.Sp || d < L.dpad) {
-    for (int i = threadIdx.x; i < L.Sp * L.dpad; i += kFusedThreads) {
-      const int r = i / L.dpad;
-      const int c = i - r * L.dpad;
-      if (r >= S || c >= d) {
-        store_as(st.q + r * L.dsT + c, 0.f);
-        store_as(st.k + r * L.dsT + c, 0.f);
-        store_as(st.v + r * L.dsT + c, 0.f);
-        st.g[r * L.dsF + c] = 0.f;
-      }
-    }
-  }
-  if (!seg)
-    for (int i = threadIdx.x; i < L.Sp; i += kFusedThreads) st.seg[i] = 0;
+  zero_row_padding(st, L, S, d, seg != nullptr);
   cp_async_wait_all();
   __syncthreads();
   if constexpr (kBlock) {
-    for (int i = threadIdx.x; i < S; i += kFusedThreads) {
-      bool valid;
-      const int p = sel_pos<true>(st.table, 0, S, i, bs, seq_len, valid);
-      st.pos[i] = p;
-      st.idx[i] = valid ? p : -1;
-    }
+    expand_row_blocks(st, S, bs, seq_len, false);
     __syncthreads();
   }
 
   // Phase A: S and dP, a 2 x 4 micro-tile of each per thread.
-  for (int t = threadIdx.x; t < nqg * nkg; t += kFusedThreads) {
+  for (int t = threadIdx.x; t < nqg * nkg; t += kRowThreads) {
     const int i0 = (t / nkg) * 2;
     const int j0 = t % nkg;
     float s[2][4] = {}, dp[2][4] = {};
@@ -659,7 +529,7 @@ mosa_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Phase B: dQ, dK and dV, a 4 x 4 micro-tile of each per thread.
   const size_t base = static_cast<size_t>(row) * S;
-  for (int t = threadIdx.x; t < nkg * ncg; t += kFusedThreads) {
+  for (int t = threadIdx.x; t < nkg * ncg; t += kRowThreads) {
     const int r0 = (t / ncg) * 4;
     const int c0 = (t % ncg) * 4;
     float aq[4][4] = {}, ak[4][4] = {}, av[4][4] = {};
@@ -724,11 +594,11 @@ int launch_fused(const void* q, const void* k, const void* v, const void* idx,
                  const void* delta, void* dq, void* dk, void* dv, int BH,
                  int S, int d, float scale, int bs, int seq_len,
                  cudaStream_t stream) {
-  if (S < 1 || S > kFusedMaxS || d < 1 || d > kMaxD || BH < 0 || bs < 1 ||
+  if (S < 1 || S > kRowMaxS || d < 1 || d > kRowMaxD || BH < 0 || bs < 1 ||
       S % bs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (BH == 0) return static_cast<int>(cudaSuccess);
-  const FusedLayout L = fused_layout(S, d, sizeof(T), kBlock);
+  const RowLayout L = row_layout(S, d, sizeof(T), kBlock, true);
   const size_t smem = L.stage_bytes + L.scratch_bytes;
   const bool vec = d % (16 / sizeof(T)) == 0 && aligned16(q) &&
                    aligned16(k) && aligned16(v) && aligned16(gt) &&
@@ -736,7 +606,7 @@ int launch_fused(const void* q, const void* k, const void* v, const void* idx,
   auto* kernel = mosa_bwd_fused_kernel<T, kBlock>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<BH, kFusedThreads, smem, stream>>>(
+  kernel<<<BH, kRowThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(gt),

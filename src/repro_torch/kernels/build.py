@@ -10,7 +10,8 @@ is reused.  Nothing here runs at import time.
 
 ``LaunchCounter`` is the per-kernel count of launches: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  ``launch`` calls one C entry on the
+current stream, raises if the launch failed and counts it.
 """
 
 from __future__ import annotations
@@ -41,12 +42,17 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (see the csrc sources).
 SIGNATURES = {
     "repro_mosa_attention": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_row": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_fwd_res": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    "repro_mosa_attention_fwd_res_row": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd_dkv": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_attention_bwd": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
     "repro_mosa_block_attention": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "repro_mosa_block_attention_row": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_fwd_res": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "repro_mosa_block_attention_fwd_res_row": [_P] * 7 + [_I] * 5
+    + [_F, _I, _P],
     "repro_mosa_block_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "repro_mosa_block_attention_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
@@ -153,6 +159,21 @@ def check_launch(rc: int, name: str):
     """Raise if a launcher returned a nonzero ``cudaGetLastError()``."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error code {rc}")
+
+
+def launch(entry: str, counter: LaunchCounter, *args):
+    """Call the C entry ``entry`` of the library on ``args`` (a tensor as
+    its data pointer, None as a null pointer, an int or a float as it is)
+    and the current stream of the first argument's device; raise if the
+    launch failed, else count it on ``counter``."""
+    lib = library().lib
+    dev = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(*ptrs, stream)
+    check_launch(rc, counter.name)
+    counter.count += 1
 
 
 def check_tensor(name, t, shape, dtype, device):

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_launch, check_tensor, library)
+                                      check_tensor, launch)
 
 NEG_INF = -1e30
 MAX_D = 128
@@ -52,6 +52,15 @@ def segments_from_cu_seqlens(cu_seqlens, total: int):
     seg = torch.where(in_range, seg, -1)
     pos = torch.where(in_range, t - cu[seg.clamp(min=0)], 0)
     return seg.to(torch.int32), pos.to(torch.int32)
+
+
+def token_segments(cu_seqlens, total: int):
+    """(total,) int32 segment of each packed token, as kernel #10 reads it,
+    in two device ops: the segment whose end is the first past the token;
+    a token of the padding tail (>= cu[N]) gets N, which the kernel takes as
+    padding.  cu_seqlens: (N+1,) int32, contiguous."""
+    t = torch.arange(total, dtype=torch.int32, device=cu_seqlens.device)
+    return torch.searchsorted(cu_seqlens[1:], t, right=True, out_int32=True)
 
 
 def _masked_gqa(q, k, v, ok, scale):
@@ -140,15 +149,8 @@ def flash_attention_cuda(q, k, v, scale=None, window: int = 0):
                   (B, Hkv, Tk, d))
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Tq, Tk, d, int(window), Tk - Tq, scale, DTYPE_CODE[q.dtype],
-            stream)
-    check_launch(rc, "flash_attention")
-    LAUNCHES.count += 1
+    launch("repro_flash_attention", LAUNCHES, q, k, v, out, B, Hq, Hkv, Tq,
+           Tk, d, int(window), Tk - Tq, scale, DTYPE_CODE[q.dtype])
     return out
 
 
@@ -173,18 +175,12 @@ def flash_attention_varlen_cuda(q, k, v, cu_seqlens, scale=None,
         raise ValueError(f"cu_seqlens must be (N+1,) with N >= 1, got "
                          f"{tuple(cu_seqlens.shape)}")
     check_tensor("cu_seqlens", cu_seqlens, (N + 1,), torch.int32, q.device)
-    seg, _ = segments_from_cu_seqlens(cu_seqlens, total)
+    seg = token_segments(cu_seqlens, total)
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_flash_attention_varlen(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-            cu_seqlens.data_ptr(), out.data_ptr(), total, N, Hq, Hkv, d,
-            int(window), scale, DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "flash_attention_varlen")
-    LAUNCHES_VARLEN.count += 1
+    launch("repro_flash_attention_varlen", LAUNCHES_VARLEN, q, k, v, seg,
+           cu_seqlens, out, total, N, Hq, Hkv, d, int(window), scale,
+           DTYPE_CODE[q.dtype])
     return out
 
 

@@ -6,9 +6,13 @@ Replaces two TPU kernels of ``repro/kernels/mosa_attention.py``:
 
   * ``mosa_attention_ref`` / ``mosa_attention_cuda`` — plain PyTorch (a
     port of ``repro.kernels.ref.mosa_attention_ref``) and the hand-written
-    CUDA kernel (``csrc/mosa_attention.cu``);
+    CUDA kernels (``csrc/mosa_attention.cu``);
   * ``mosa_attention_fwd_res_ref`` / ``mosa_attention_fwd_res_cuda`` — the
     training forward: ``o_pre`` (not scaled by r) and ``lse`` per query;
+  * each ``*_cuda`` picks one of two routes and launches it once: the
+    one-row kernel (``*_row_cuda``: one thread block holds a whole row,
+    when ``row_fits(S, d)``: S <= 64, d <= 128) or the streaming kernel
+    (``*_stream_cuda``: any S); both count on the same launch counter;
   * ``mosa_attention`` — dispatch.  A call that autograd must
     differentiate (grad enabled and any of q, k, v, r requiring grad) goes
     through the ``torch.autograd.Function`` of ``kernels.mosa_vjp``;
@@ -24,12 +28,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_launch, check_tensor, library)
+                                      check_tensor, launch)
 
 NEG_INF = -1e30
 MAX_D = 128
+ROW_MAX_S = 64
 LAUNCHES = LaunchCounter("mosa_attention")
 LAUNCHES_FWD_RES = LaunchCounter("mosa_attention_fwd_res")
+
+
+def row_fits(S, d):
+    """Whether a row of S selected tokens of width d fits one thread block:
+    the route of the one-row forward (#1, #2 and their block forms #5,
+    #6) and of the fused backward (``kernels.mosa_backward``)."""
+    return 1 <= S <= ROW_MAX_S and 1 <= d <= MAX_D
 
 
 def wide(t):
@@ -104,50 +116,71 @@ def check_mosa_inputs(name, q, k, v, idx, seg):
     return B, H, S, d
 
 
-def data_ptr(t):
-    """``t.data_ptr()``, or None (a null pointer) for a missing tensor."""
-    return None if t is None else t.data_ptr()
+def _forward_cuda(route, q, k, v, idx, r, scale, seg):
+    """One launch of #1 (``r`` given) or #2 (``r`` None) on ``route``, "row"
+    or "stream"."""
+    name = "mosa_attention" if r is not None else "mosa_attention_fwd_res"
+    B, H, S, d = check_mosa_inputs(f"{name}_{route}_cuda", q, k, v, idx, seg)
+    if route == "row" and not row_fits(S, d):
+        raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
+                         f"d <= {MAX_D}, got S={S}, d={d}")
+    entry = f"repro_{name}" + ("_row" if route == "row" else "")
+    scale = float(scale if scale is not None else d ** -0.5)
+    if r is not None:
+        check_tensor("r", r, (B, H, S), torch.float32, q.device)
+        out = torch.empty_like(q)
+        launch(entry, LAUNCHES, q, k, v, idx, seg, r, out, B * H, S, d, scale,
+               DTYPE_CODE[q.dtype])
+        return out
+    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch(entry, LAUNCHES_FWD_RES, q, k, v, idx, seg, o_pre, lse, B * H, S,
+           d, scale, DTYPE_CODE[q.dtype])
+    return o_pre, lse
+
+
+def fits_one_row(q):
+    """Whether the one-row kernels take ``q`` (B, H, S, d)."""
+    return q.dim() == 4 and row_fits(q.shape[2], q.shape[3])
+
+
+def mosa_attention_row_cuda(q, k, v, idx, r, scale=None, seg=None):
+    """Kernel #1 on the one-row route.  q, k, v: (B, H, S, d) contiguous
+    fp32 or bf16 with ``row_fits(S, d)``; idx, seg: (B, H, S) int32; r:
+    (B, H, S) fp32.  Raises on anything else."""
+    return _forward_cuda("row", q, k, v, idx, r, scale, seg)
+
+
+def mosa_attention_stream_cuda(q, k, v, idx, r, scale=None, seg=None):
+    """Kernel #1 on the streaming route (any S, d <= 128)."""
+    return _forward_cuda("stream", q, k, v, idx, r, scale, seg)
 
 
 def mosa_attention_cuda(q, k, v, idx, r, scale=None, seg=None):
-    """The CUDA kernel.  q, k, v: (B, H, S, d) contiguous fp32 or bf16 with
-    d <= 128; idx, seg: (B, H, S) int32; r: (B, H, S) fp32.  Raises on
-    anything else."""
-    B, H, S, d = check_mosa_inputs("mosa_attention_cuda", q, k, v, idx, seg)
-    check_tensor("r", r, (B, H, S), torch.float32, q.device)
-    scale = float(scale if scale is not None else d ** -0.5)
-    out = torch.empty_like(q)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_mosa_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            data_ptr(seg), r.data_ptr(), out.data_ptr(), B * H, S, d, scale,
-            DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "mosa_attention")
-    LAUNCHES.count += 1
-    return out
+    """Kernel #1: the one-row kernel where ``row_fits(S, d)``, the streaming
+    kernel otherwise.  Inputs as ``mosa_attention_row_cuda``."""
+    if fits_one_row(q):
+        return mosa_attention_row_cuda(q, k, v, idx, r, scale, seg)
+    return mosa_attention_stream_cuda(q, k, v, idx, r, scale, seg)
+
+
+def mosa_attention_fwd_res_row_cuda(q, k, v, idx, scale=None, seg=None):
+    """Kernel #2 (the training forward, ``kResiduals``) on the one-row
+    route.  Inputs as ``mosa_attention_row_cuda`` without r; returns
+    (o_pre fp32 (B, H, S, d), lse fp32 (B, H, S))."""
+    return _forward_cuda("row", q, k, v, idx, None, scale, seg)
+
+
+def mosa_attention_fwd_res_stream_cuda(q, k, v, idx, scale=None, seg=None):
+    """Kernel #2 on the streaming route."""
+    return _forward_cuda("stream", q, k, v, idx, None, scale, seg)
 
 
 def mosa_attention_fwd_res_cuda(q, k, v, idx, scale=None, seg=None):
-    """The training-forward CUDA kernel (``kResiduals`` form of
-    ``csrc/mosa_attention.cu``).  Inputs as ``mosa_attention_cuda`` without
-    r; returns (o_pre fp32 (B, H, S, d), lse fp32 (B, H, S))."""
-    B, H, S, d = check_mosa_inputs("mosa_attention_fwd_res_cuda", q, k, v,
-                                   idx, seg)
-    scale = float(scale if scale is not None else d ** -0.5)
-    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_mosa_attention_fwd_res(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            data_ptr(seg), o_pre.data_ptr(), lse.data_ptr(), B * H, S, d, scale,
-            DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "mosa_attention_fwd_res")
-    LAUNCHES_FWD_RES.count += 1
-    return o_pre, lse
+    """Kernel #2 on the route ``mosa_attention_cuda`` takes."""
+    if fits_one_row(q):
+        return mosa_attention_fwd_res_row_cuda(q, k, v, idx, scale, seg)
+    return mosa_attention_fwd_res_stream_cuda(q, k, v, idx, scale, seg)
 
 
 def mosa_attention_fwd_res(q, k, v, idx, scale=None, seg=None):

@@ -36,20 +36,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_launch, check_tensor, library)
-from repro_torch.kernels.mosa_attention import (MAX_D, check_mosa_inputs,
-                                                data_ptr, pair_mask, wide)
+                                      check_tensor, launch)
+from repro_torch.kernels.mosa_attention import (MAX_D, ROW_MAX_S,
+                                                check_mosa_inputs, pair_mask,
+                                                row_fits, wide)
 
 LAUNCHES = LaunchCounter("mosa_attention_bwd")
 LAUNCHES_DQ = LaunchCounter("mosa_attention_bwd_dq")
 LAUNCHES_DKV = LaunchCounter("mosa_attention_bwd_dkv")
-FUSED_MAX_S = 64
-
-
-def fused_bwd_fits(S, d):
-    """Whether the fused kernel takes a row of S selected tokens of width d:
-    the whole row must fit one tile."""
-    return 1 <= S <= FUSED_MAX_S and 1 <= d <= MAX_D
+# The fused kernel holds a whole row in one block, as the one-row forward
+# does (csrc/mosa_row.cuh): the same bounds.
+FUSED_MAX_S = ROW_MAX_S
+fused_bwd_fits = row_fits
 
 
 def mosa_attention_bwd_ref(q, k, v, idx, gt, lse, delta, scale=None,
@@ -92,15 +90,8 @@ def mosa_attention_bwd_dq_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                             gt, lse, delta)
     scale = float(scale if scale is not None else d ** -0.5)
     dq = torch.empty_like(q)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_mosa_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            data_ptr(seg), gt.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B * H, S, d, scale, DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "mosa_attention_bwd_dq")
-    LAUNCHES_DQ.count += 1
+    launch("repro_mosa_attention_bwd_dq", LAUNCHES_DQ, q, k, v, idx, seg, gt,
+           lse, delta, dq, B * H, S, d, scale, DTYPE_CODE[q.dtype])
     return dq
 
 
@@ -111,16 +102,8 @@ def mosa_attention_bwd_dkv_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                             gt, lse, delta)
     scale = float(scale if scale is not None else d ** -0.5)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.repro_mosa_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            data_ptr(seg), gt.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, S, d, scale,
-            DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "mosa_attention_bwd_dkv")
-    LAUNCHES_DKV.count += 1
+    launch("repro_mosa_attention_bwd_dkv", LAUNCHES_DKV, q, k, v, idx, seg,
+           gt, lse, delta, dk, dv, B * H, S, d, scale, DTYPE_CODE[q.dtype])
     return dk, dv
 
 
@@ -136,15 +119,8 @@ def mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                          f"d <= {MAX_D}, got S={S}, d={d}")
     scale = float(scale if scale is not None else d ** -0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = library().lib.repro_mosa_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            data_ptr(seg), gt.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, d, scale,
-            DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "mosa_attention_bwd")
-    LAUNCHES.count += 1
+    launch("repro_mosa_attention_bwd", LAUNCHES, q, k, v, idx, seg, gt, lse,
+           delta, dq, dk, dv, B * H, S, d, scale, DTYPE_CODE[q.dtype])
     return dq, dk, dv
 
 

@@ -22,7 +22,10 @@ identity and each function equals its token-choice counterpart
     the kernels are checked against on the card);
   * ``*_cuda`` — the hand-written CUDA kernels, the block-choice mode of
     ``csrc/mosa_attention.cu`` and ``csrc/mosa_backward.cu``, each with its
-    launch counter.  The backward has two routes, as token choice's has:
+    launch counter.  #5 and #6 have two routes, as token choice's #1 and
+    #2: the one-row kernel (``*_row_cuda``) when ``row_fits(S, d)`` and the
+    streaming kernel (``*_stream_cuda``) otherwise, counted on one counter
+    per kernel.  The backward has two routes, as token choice's has:
     ``mosa_block_attention_bwd_fused_cuda``, #7 and #8 fused into one
     launch (the block form of ``mosa_bwd_fused_kernel``) when a row's S =
     NB * bs selected tokens fit one tile (``fused_bwd_fits``: S <= 64,
@@ -43,8 +46,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_launch, check_tensor, library)
-from repro_torch.kernels.mosa_attention import (MAX_D, data_ptr, pair_mask,
+                                      check_tensor, launch)
+from repro_torch.kernels.mosa_attention import (MAX_D, ROW_MAX_S, fits_one_row,
+                                                pair_mask, row_fits,
                                                 softmax_parts, wide)
 from repro_torch.kernels.mosa_backward import (FUSED_MAX_S, bwd_from_mask,
                                                fused_bwd_fits)
@@ -143,47 +147,80 @@ def _check_block_inputs(name, q, k, v, bidx, seg, bs, T):
     return B, H, S, d, NB
 
 
-def _launch(fn_name, counter, *args):
-    lib = library().lib
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [data_ptr(a) if a is None or isinstance(a, torch.Tensor)
-                else a for a in args]
-        rc = getattr(lib, fn_name)(*ptrs, stream)
-    check_launch(rc, counter.name)
-    counter.count += 1
+def _forward_cuda(route, q, k, v, bidx, rblk, bs, T, scale, seg):
+    """One launch of #5 (``rblk`` given) or #6 (``rblk`` None) on
+    ``route``, "row" or "stream"."""
+    name = ("mosa_block_attention" if rblk is not None
+            else "mosa_block_attention_fwd_res")
+    B, H, S, d, NB = _check_block_inputs(f"{name}_{route}_cuda", q, k, v,
+                                         bidx, seg, bs, T)
+    if route == "row" and not row_fits(S, d):
+        raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
+                         f"d <= {MAX_D}, got S={S}, d={d}")
+    entry = f"repro_{name}" + ("_row" if route == "row" else "")
+    scale = float(scale if scale is not None else d ** -0.5)
+    if rblk is not None:
+        check_tensor("rblk", rblk, (B, H, NB), torch.float32, q.device)
+        out = torch.empty_like(q)
+        launch(entry, LAUNCHES, q, k, v, bidx, seg, rblk, out, B * H, S, d,
+               bs, T, scale, DTYPE_CODE[q.dtype])
+        return out
+    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch(entry, LAUNCHES_FWD_RES, q, k, v, bidx, seg, o_pre, lse, B * H, S,
+           d, bs, T, scale, DTYPE_CODE[q.dtype])
+    return o_pre, lse
+
+
+def mosa_block_attention_row_cuda(q, k, v, bidx, rblk, bs: int, T: int,
+                                  scale=None, seg=None):
+    """Kernel #5 on the one-row route.  q, k, v: (B, H, NB*bs, d)
+    contiguous fp32 or bf16 with ``row_fits(NB*bs, d)``; bidx: (B, H, NB)
+    int32; rblk: (B, H, NB) fp32; seg: optional (B, H, NB*bs) int32.
+    Raises on anything else."""
+    return _forward_cuda("row", q, k, v, bidx, rblk, bs, T, scale, seg)
+
+
+def mosa_block_attention_stream_cuda(q, k, v, bidx, rblk, bs: int, T: int,
+                                     scale=None, seg=None):
+    """Kernel #5 on the streaming route (any S, d <= 128)."""
+    return _forward_cuda("stream", q, k, v, bidx, rblk, bs, T, scale, seg)
 
 
 def mosa_block_attention_cuda(q, k, v, bidx, rblk, bs: int, T: int,
                               scale=None, seg=None):
-    """Kernel #5.  q, k, v: (B, H, NB*bs, d) contiguous fp32 or bf16 with
-    d <= 128; bidx: (B, H, NB) int32; rblk: (B, H, NB) fp32; seg: optional
-    (B, H, NB*bs) int32.  Raises on anything else."""
-    B, H, S, d, NB = _check_block_inputs("mosa_block_attention_cuda", q, k,
-                                         v, bidx, seg, bs, T)
-    check_tensor("rblk", rblk, (B, H, NB), torch.float32, q.device)
-    out = torch.empty_like(q)
-    _launch("repro_mosa_block_attention", LAUNCHES, q, k, v, bidx, seg, rblk,
-            out, B * H, S, d, bs, T,
-            float(scale if scale is not None else d ** -0.5),
-            DTYPE_CODE[q.dtype])
-    return out
+    """Kernel #5: the one-row kernel where ``row_fits(S, d)``, the
+    streaming kernel otherwise.  Inputs as
+    ``mosa_block_attention_row_cuda``."""
+    if fits_one_row(q):
+        return mosa_block_attention_row_cuda(q, k, v, bidx, rblk, bs, T,
+                                             scale, seg)
+    return mosa_block_attention_stream_cuda(q, k, v, bidx, rblk, bs, T,
+                                            scale, seg)
+
+
+def mosa_block_attention_fwd_res_row_cuda(q, k, v, bidx, bs: int, T: int,
+                                          scale=None, seg=None):
+    """Kernel #6 on the one-row route: (o_pre fp32 (B, H, S, d), lse fp32
+    (B, H, S)).  Inputs as ``mosa_block_attention_row_cuda`` without
+    rblk."""
+    return _forward_cuda("row", q, k, v, bidx, None, bs, T, scale, seg)
+
+
+def mosa_block_attention_fwd_res_stream_cuda(q, k, v, bidx, bs: int, T: int,
+                                             scale=None, seg=None):
+    """Kernel #6 on the streaming route."""
+    return _forward_cuda("stream", q, k, v, bidx, None, bs, T, scale, seg)
 
 
 def mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs: int, T: int,
                                       scale=None, seg=None):
-    """Kernel #6: (o_pre fp32 (B, H, S, d), lse fp32 (B, H, S)).  Inputs
-    as ``mosa_block_attention_cuda`` without rblk."""
-    B, H, S, d, _ = _check_block_inputs("mosa_block_attention_fwd_res_cuda",
-                                        q, k, v, bidx, seg, bs, T)
-    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("repro_mosa_block_attention_fwd_res", LAUNCHES_FWD_RES, q, k, v,
-            bidx, seg, o_pre, lse, B * H, S, d, bs, T,
-            float(scale if scale is not None else d ** -0.5),
-            DTYPE_CODE[q.dtype])
-    return o_pre, lse
+    """Kernel #6 on the route ``mosa_block_attention_cuda`` takes."""
+    if fits_one_row(q):
+        return mosa_block_attention_fwd_res_row_cuda(q, k, v, bidx, bs, T,
+                                                     scale, seg)
+    return mosa_block_attention_fwd_res_stream_cuda(q, k, v, bidx, bs, T,
+                                                    scale, seg)
 
 
 def _check_bwd(name, q, k, v, bidx, seg, gt, lse, delta, bs, T):
@@ -202,7 +239,7 @@ def mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, lse, delta, bs: int,
     BH, S, d = _check_bwd("mosa_block_attention_bwd_dq_cuda", q, k, v, bidx,
                           seg, gt, lse, delta, bs, T)
     dq = torch.empty_like(q)
-    _launch("repro_mosa_block_attention_bwd_dq", LAUNCHES_DQ, q, k, v, bidx,
+    launch("repro_mosa_block_attention_bwd_dq", LAUNCHES_DQ, q, k, v, bidx,
             seg, gt, lse, delta, dq, BH, S, d, bs, T,
             float(scale if scale is not None else d ** -0.5),
             DTYPE_CODE[q.dtype])
@@ -215,7 +252,7 @@ def mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse, delta,
     BH, S, d = _check_bwd("mosa_block_attention_bwd_dkv_cuda", q, k, v, bidx,
                           seg, gt, lse, delta, bs, T)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("repro_mosa_block_attention_bwd_dkv", LAUNCHES_DKV, q, k, v, bidx,
+    launch("repro_mosa_block_attention_bwd_dkv", LAUNCHES_DKV, q, k, v, bidx,
             seg, gt, lse, delta, dk, dv, BH, S, d, bs, T,
             float(scale if scale is not None else d ** -0.5),
             DTYPE_CODE[q.dtype])
@@ -234,7 +271,7 @@ def mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse, delta,
         raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
                          f"d <= {MAX_D}, got S={S}, d={d}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    _launch("repro_mosa_block_attention_bwd", LAUNCHES_BWD, q, k, v, bidx,
+    launch("repro_mosa_block_attention_bwd", LAUNCHES_BWD, q, k, v, bidx,
             seg, gt, lse, delta, dq, dk, dv, BH, S, d, bs, T,
             float(scale if scale is not None else d ** -0.5),
             DTYPE_CODE[q.dtype])

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_launch, check_tensor, library)
+                                      check_tensor, launch)
 from repro_torch.serve.paged_kv import PagedDenseKVCache
 
 NEG_INF = -1e30
@@ -109,15 +109,9 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, scale):
     check_tensor("lengths", lengths, (B,), torch.int32, dev)
     _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
-    lib = library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.repro_paged_attention_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "paged_attention_decode")
-    LAUNCHES.count += 1
+    launch("repro_paged_attention_decode", LAUNCHES, q, k_pool, v_pool,
+           block_table, lengths, out, B, Hq, Hkv, d, bs, nb, float(scale),
+           DTYPE_CODE[q.dtype])
     return out
 
 
@@ -233,17 +227,9 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
     out = torch.empty_like(q)
     _, _, ws_shape = prefill_grid(total, N, Hq, Hkv, d, nb, bs)
     ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
-    lib = library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.repro_paged_prefill_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), cu_seqlens.data_ptr(),
-            row_of_seg.data_ptr(), past_lens.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), total, N, Hq, Hkv, d, bs, nb, float(scale),
-            DTYPE_CODE[q.dtype], stream)
-    check_launch(rc, "paged_prefill_attention")
-    LAUNCHES_PREFILL.count += 1
+    launch("repro_paged_prefill_attention", LAUNCHES_PREFILL, q, k_pool,
+           v_pool, block_table, cu_seqlens, row_of_seg, past_lens, out, ws,
+           total, N, Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype])
     return out
 
 

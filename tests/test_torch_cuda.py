@@ -18,16 +18,22 @@ kernel is held to the plain version (also at S = 1 and at S = 64 with
 d = 128), to the split kernels, and to itself (two launches equal bit for
 bit); the counters show which route each case takes.  The block-choice
 kernels (#5-#8) and their autograd Function are held to the same
-tolerances at the slice's shape and at the edge cases of ``BLOCK_CASES``;
+tolerances at the slice's shape and at the edge cases of ``BLOCK_CASES``.
+The forwards #1, #2, #5 and #6 take the one-row kernel at S <= 64 (d <=
+128) and the streaming one above: both routes are held to the plain
+version (S = 64 and 65 at d 128 included), the routed call gives its
+route's bits, two launches of each route are bitwise equal, and at S <= 32
+the two routes agree bit for bit;
 the block backward takes the fused #7 + #8 at S = NB * bs <= 64 (held to
 the plain version, to the split kernels and to itself, two launches equal
 bit for bit) and the split #7 and #8 above; at bs = 1, #5, #6 and the
-fused block backward equal #1, #2 and the fused token backward bit for
-bit.  The flash kernels #9
-and #10 are held to the same tolerances (GQA, q_offset, windows, ragged
-tiles, segments of length 1, a padding tail that must come back as
-zeros), and the window model is served on the card and the CPU with
-identical greedy tokens.
+fused block backward equal #1, #2 (on both routes) and the fused token
+backward bit for bit.  The flash kernels #9 and #10 are held to the same
+tolerances (GQA, q_offset, windows, ragged tiles, Tq not a multiple of the
+64-row tile with the window's edge inside a key tile, segments of length
+1, a padding tail that must come back as zeros) and to themselves (two
+launches bitwise equal), and the window model is served on the card and
+the CPU with identical greedy tokens.
 """
 
 import pytest
@@ -50,7 +56,8 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,d,with_seg", [(32, 64, False), (37, 64, True),
-                                          (70, 80, False)])
+                                          (70, 80, False), (64, 128, True),
+                                          (65, 128, False)])
 def test_mosa_attention_kernel_matches_plain(dev, dtype, S, d, with_seg):
     from repro_torch.kernels.mosa_attention import (LAUNCHES,
                                                     mosa_attention_cuda,
@@ -163,6 +170,50 @@ def test_mosa_fwd_res_kernel_matches_plain(dev, dtype, case):
                                rtol=_tol(dtype))
     torch.testing.assert_close(lse, want_lse, atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+# The forward's route boundary: S = 64 and S = 65 at d = 128, beside the
+# training cases.
+FWD_ROUTE_CASES = TRAIN_CASES + [(1, 3, 64, 128, 300, 4, 3, True),
+                                 (1, 3, 65, 128, 300, 4, 3, False),
+                                 (2, 3, 1, 64, 10, 0, 0, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_ROUTE_CASES)
+def test_mosa_forward_routes(dev, dtype, case):
+    """#1 and #2 take the one-row kernel at S <= 64 (d <= 128) and the
+    streaming one above: the routed output equals that route's bit for bit;
+    the one-row kernel (where it fits) and the streaming kernel (always)
+    each match the plain version, and two launches of each are bitwise
+    equal.  At S <= 32 (one key tile of the streaming kernel) the two
+    routes run the same float operations and agree bit for bit."""
+    from repro_torch.kernels import mosa_attention as km
+    q, k, v, idx, r, seg, _ = _train_inputs(dev, *case)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    want = km.mosa_attention_ref(qf, kf, vf, idx, r, seg=seg)
+    want_res = km.mosa_attention_fwd_res_ref(qf, kf, vf, idx, seg=seg)
+    routes = ["stream"] + (["row"] if km.row_fits(case[2], case[3]) else [])
+    outs = {}
+    for route in routes:
+        fwd = getattr(km, f"mosa_attention_{route}_cuda")
+        res = getattr(km, f"mosa_attention_fwd_res_{route}_cuda")
+        got, again = (fwd(q, k, v, idx, r, seg=seg) for _ in range(2))
+        assert torch.equal(got, again), route
+        torch.testing.assert_close(got.float(), want, msg=route, **tol)
+        got_res, again_res = (res(q, k, v, idx, seg=seg) for _ in range(2))
+        for a, a2, b in zip(got_res, again_res, want_res):
+            assert torch.equal(a, a2), route
+            torch.testing.assert_close(a, b, msg=route, **tol)
+        outs[route] = (got,) + tuple(got_res)
+    assert torch.equal(km.mosa_attention_cuda(q, k, v, idx, r, seg=seg), got)
+    assert all(torch.equal(a, b) for a, b in zip(
+        km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg), got_res))
+    if case[2] <= 32:
+        assert all(torch.equal(a, b)
+                   for a, b in zip(outs["row"], outs["stream"]))
 
 
 def _bwd_inputs(dev, dtype, case):
@@ -411,7 +462,9 @@ def test_scheduler_card_matches_cpu(dev):
 # ragged last block (T % bs != 0) and empty blocks; two segments; d 32 and
 # 128; for the fused backward S = 64 exactly, bs 3 (S = 21, not a multiple
 # of 4), bs 1 and rows whose blocks past the first are all empty; bs 64
-# (S = 128), wider than the split kernels' 32-key tile.
+# (S = 128), wider than the split kernels' 32-key tile; the forward's route
+# boundary at d = 128: S = 64 with rows of block 0 alone (one-row) and
+# S = 65 as 5 blocks of 13 (streaming).
 BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
                (2, 3, 9, 4, 64, 101, 6, True),
                (2, 3, 5, 8, 32, 77, 3, True),
@@ -420,7 +473,9 @@ BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
                (2, 3, 7, 3, 64, 50, 5, False),
                (2, 3, 37, 1, 64, 200, 6, True),
                (2, 3, 4, 8, 64, 90, 0, False, 3),
-               (1, 2, 2, 64, 64, 150, 0, True)]
+               (1, 2, 2, 64, 64, 150, 0, True),
+               (1, 3, 4, 16, 128, 300, 0, False, 2),
+               (1, 2, 5, 13, 128, 100, 1, False)]
 
 
 def _block_route(NB, bs, d):
@@ -585,21 +640,73 @@ def test_block_autograd_function_matches_autograd_of_plain(dev, dtype, case):
         torch.testing.assert_close(a.float(), b, msg=name, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_block_forward_routes(dev, dtype, case):
+    """#5 and #6 on both routes, as ``test_mosa_forward_routes``: the routed
+    output is the one-row kernel's at S = NB * bs <= 64 and the streaming
+    kernel's above, each route matches the plain version (invalid query
+    rows exact zeros), two launches are bitwise equal, and at S <= 32 the
+    routes agree bit for bit."""
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, bidx, rblk, seg, _ = _block_inputs(dev, *case)
+    bs, T = case[3], case[5]
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    _, ok = kb.expand_blocks(bidx, bs, T)
+    want = kb.mosa_block_attention_ref(qf, kf, vf, bidx, rblk, bs, T,
+                                       seg=seg)
+    want_res = kb.mosa_block_attention_fwd_res_ref(qf, kf, vf, bidx, bs, T,
+                                                   seg=seg)
+    routes = ["stream"] + (["row"] if kb.row_fits(case[2] * bs, case[4])
+                           else [])
+    outs = {}
+    for route in routes:
+        fwd = getattr(kb, f"mosa_block_attention_{route}_cuda")
+        res = getattr(kb, f"mosa_block_attention_fwd_res_{route}_cuda")
+        got, again = (fwd(q, k, v, bidx, rblk, bs, T, seg=seg)
+                      for _ in range(2))
+        assert torch.equal(got, again), route
+        torch.testing.assert_close(got.float(), want, msg=route, **tol)
+        assert (got[~ok] == 0).all(), route
+        got_res, again_res = (res(q, k, v, bidx, bs, T, seg=seg)
+                              for _ in range(2))
+        for a, a2, b in zip(got_res, again_res, want_res):
+            assert torch.equal(a, a2), route
+            torch.testing.assert_close(a, b, msg=route, **tol)
+        assert (got_res[0][~ok] == 0).all(), route
+        outs[route] = (got,) + tuple(got_res)
+    assert torch.equal(kb.mosa_block_attention_cuda(q, k, v, bidx, rblk, bs,
+                                                    T, seg=seg), got)
+    assert all(torch.equal(a, b) for a, b in zip(
+        kb.mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs, T, seg=seg),
+        got_res))
+    if case[2] * bs <= 32:
+        assert all(torch.equal(a, b)
+                   for a, b in zip(outs["row"], outs["stream"]))
+
+
 def test_block_kernels_at_bs1_equal_token_kernels(dev):
     """At bs = 1 kernels #5 and #6 stage the same values and run the same
-    float operations as #1 and #2: bit for bit equal on the same inputs."""
+    float operations as #1 and #2, on the one-row route and on the
+    streaming one: bit for bit equal on the same inputs."""
     from repro_torch.kernels import mosa_attention as km
     from repro_torch.kernels import mosa_block as kb
     q, k, v, idx, r, seg, _ = _train_inputs(dev, *TRAIN_CASES[1])
     idx = torch.where(idx < 0, 2 ** 31 - 1, idx).sort(-1).values
     idx = torch.where(idx == 2 ** 31 - 1, -1, idx).to(torch.int32)
     T = 200
-    assert torch.equal(kb.mosa_block_attention_cuda(q, k, v, idx, r, 1, T,
-                                                    seg=seg),
-                       km.mosa_attention_cuda(q, k, v, idx, r, seg=seg))
-    blk = kb.mosa_block_attention_fwd_res_cuda(q, k, v, idx, 1, T, seg=seg)
-    tok = km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg)
-    assert all(torch.equal(a, b) for a, b in zip(blk, tok))
+    for route in ("row", "stream"):
+        blk = getattr(kb, f"mosa_block_attention_{route}_cuda")
+        tok = getattr(km, f"mosa_attention_{route}_cuda")
+        assert torch.equal(blk(q, k, v, idx, r, 1, T, seg=seg),
+                           tok(q, k, v, idx, r, seg=seg)), route
+        blk = getattr(kb, f"mosa_block_attention_fwd_res_{route}_cuda")
+        tok = getattr(km, f"mosa_attention_fwd_res_{route}_cuda")
+        got = blk(q, k, v, idx, 1, T, seg=seg)
+        want = tok(q, k, v, idx, seg=seg)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), route
 
 
 def test_fused_block_bwd_at_bs1_equals_fused_token_bwd(dev):
@@ -679,10 +786,12 @@ def test_block_choice_serving_card_matches_cpu(dev):
 
 
 # (B, Hq, Hkv, Tq, Tk, d, window): causal and windowed, GQA, Tq < Tk
-# through q_offset, ragged tiles, d not a multiple of 32, d = 128
+# through q_offset, ragged tiles, d not a multiple of 32, d = 128; Tq not a
+# multiple of the 64-row tile with the window's edge inside a key tile
 FLASH_CASES = [(2, 4, 4, 100, 100, 64, 0), (2, 8, 2, 130, 130, 64, 32),
                (1, 4, 2, 1, 300, 64, 64), (1, 4, 2, 77, 200, 36, 0),
-               (2, 2, 2, 70, 70, 128, 16)]
+               (2, 2, 2, 70, 70, 128, 16), (2, 4, 2, 200, 200, 64, 100),
+               (1, 2, 2, 150, 290, 64, 70)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -729,6 +838,25 @@ def test_flash_varlen_kernel_matches_plain(dev, dtype, case):
     torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
                                rtol=_tol(dtype))
     assert not got[int(cu[-1]):].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_are_deterministic(dev, dtype):
+    """Two launches of #9 and of #10 are bitwise equal (no atomics, a fixed
+    order)."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(2, 4, 200, 64, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(2, 2, 200, 64, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    for window in (0, 100):
+        a, b = (F.flash_attention(q, k, v, window=window) for _ in range(2))
+        assert torch.equal(a, b), window
+    qv, kv, vv = (x[0].transpose(0, 1).contiguous() for x in (q, k, v))
+    cu = torch.tensor([0, 70, 71, 190], dtype=torch.int32, device=dev)
+    a, b = (F.flash_attention_varlen(qv, kv, vv, cu, window=50)
+            for _ in range(2))
+    assert torch.equal(a, b)
 
 
 def test_window_model_serving_card_matches_cpu(dev):
