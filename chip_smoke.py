@@ -20,7 +20,10 @@ Phases (any failure raises, so the script exits nonzero):
      and dk/dv kernels (every case), the autograd Function that joins them
      (grads of q, k, v and r against autograd of the plain version; the
      fused route at S <= 64, the split one above, checked by the
-     counters), paged decode and packed paged
+     counters), paged decode (the slice, the Scheduler mix with a row of
+     length 0 that must be exact zeros, span boundaries of its 8-block
+     cluster, a row whose scores take two windows, a table read from
+     device memory; two launches bitwise equal) and packed paged
      prefill (padding tokens and inactive segments exact zeros; cases
      across its key splits of 128: pasts on, one before and one after a
      split boundary, a token at the deepest position, prefix blocks shared
@@ -45,9 +48,11 @@ Phases (any failure raises, so the script exits nonzero):
      and #6 on the route the slice takes (the one-row kernel) with the
      streaming kernel beside it (``stream_ms``); also the
      autograd Functions' backward prologues (g~, dr, delta; token and
-     block choice) on their own, and
-     packed prefill at a second shape (one 256-token segment at past 768,
-     the Scheduler's full chunk, in the ``sched`` JSON's kernel_cases);
+     block choice) on their own, paged decode at a second shape (the
+     Scheduler mix: 8 rows of 128-1152 positions) and packed prefill at a
+     second shape (one 256-token segment at past 768, the Scheduler's full
+     chunk), both in the ``sched`` JSON's kernel_cases; paged decode's
+     device time from ``torch.profiler`` too (``device_ms``);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
@@ -782,12 +787,76 @@ def check_prefill_kernel(torch, dev, gen, errs):
             "paged_prefill_attention", case, errs)
 
 
+# Paged decode (#11): rows of ``lengths`` over nb blocks of bs; each
+# (row, KV head) is a cluster of 8 blocks that split the row's pages.
+DECODE_SLICE = "slice B=8 Hq=Hkv=4 d=64 bs=16 nb=72"
+DECODE_SLICE_LENGTHS = [1088, 1087, 1025, 1100, 1152, 1040, 1151, 1096]
+# the Scheduler's rows at one decode step (scattered tables)
+DECODE_MIX = "Scheduler mix, 8 rows of 128-1152"
+DECODE_MIX_LENGTHS = [130, 1152, 517, 260, 1024, 700, 128, 900]
+DECODE_CASES = {
+    DECODE_SLICE: dict(B=8, Hq=4, Hkv=4, d=64, bs=16, nb=72,
+                       lengths=DECODE_SLICE_LENGTHS),
+    "Scheduler mix with a row of length 0 (zeros)": dict(
+        B=8, Hq=4, Hkv=4, d=64, bs=16, nb=72,
+        lengths=[0] + DECODE_MIX_LENGTHS[1:], neg_tail=True),
+    # 1023-1025 positions: 64 or 65 pages over 8 blocks; 127-129: 8 or 9
+    "span boundaries +-1, GQA 8/2": dict(
+        B=6, Hq=8, Hkv=2, d=64, bs=16, nb=72,
+        lengths=[1023, 1024, 1025, 127, 128, 129], neg_tail=True),
+    "GQA 8/2, lengths 1 and nb*bs, -1 tail": dict(
+        B=3, Hq=8, Hkv=2, d=64, bs=16, nb=5, lengths=[1, 80, 37],
+        neg_tail=True),
+    "GQA 16/2 d=128 bs=8": dict(B=2, Hq=16, Hkv=2, d=128, bs=8, nb=9,
+                                lengths=[70, 3], neg_tail=True),
+    "d=32": dict(B=2, Hq=2, Hkv=1, d=32, bs=4, nb=20, lengths=[77, 40]),
+    # R 8: a block's span (2208 positions) takes two score windows
+    "R 8, 17593 positions: two score windows": dict(
+        B=1, Hq=8, Hkv=1, d=32, bs=16, nb=1100, lengths=[17593],
+        neg_tail=True),
+    # more blocks than the kernel stages: table entries from device memory
+    "4200 blocks of 2: table from device memory": dict(
+        B=2, Hq=2, Hkv=1, d=32, bs=2, nb=4200, lengths=[8399, 5],
+        neg_tail=True),
+}
+
+
+def check_decode_kernel(torch, dev, gen, errs):
+    """#11 on every ``DECODE_CASES`` entry: rows of length 0 exact zeros
+    (the plain version, like JAX's gather reference, gives the mean of V
+    there; the TPU kernel gives zeros, ROADMAP C), two launches bitwise
+    equal, the other rows against the plain version."""
+    from repro_torch.serve.paged_attention import (paged_attention_cuda,
+                                                   paged_attention_ref)
+    for case, kw in DECODE_CASES.items():
+        q, kp, vp, table, lengths = paged_inputs(torch, dev=dev, gen=gen,
+                                                 **kw)
+        scale = kw["d"] ** -0.5
+        empty = lengths == 0
+
+        def kernel(dt):
+            args = (q.to(dt), kp.to(dt), vp.to(dt), table, lengths, scale)
+            out = paged_attention_cuda(*args)
+            if (out[empty] != 0).any():
+                raise AssertionError(f"paged_attention_decode ({case}): a "
+                                     "row of length 0 is not zero")
+            if not torch.equal(out, paged_attention_cuda(*args)):
+                raise AssertionError(f"paged_attention_decode ({case}): "
+                                     "two launches differ")
+            return out
+
+        def plain(dt):
+            out = paged_attention_ref(*(t.to(dt).float() for t in (q, kp, vp)),
+                                      table, lengths, scale)
+            return torch.where(empty[:, None, None], 0.0, out)
+
+        check_case(torch, kernel, plain, "paged_attention_decode", case, errs)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels import mosa_attention as km
     from repro_torch.kernels.mosa_attention import (mosa_attention_cuda,
                                                     mosa_attention_ref)
-    from repro_torch.serve.paged_attention import (paged_attention_cuda,
-                                                   paged_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"mosa_attention": 0.0, "paged_attention_decode": 0.0}
 
@@ -813,28 +882,7 @@ def check_kernels(torch, dev):
                          kw["d"])
     check_train_kernels(torch, dev, gen, errs)
 
-    paged_cases = {
-        "slice B=8 Hq=Hkv=4 d=64 bs=16 nb=72": dict(
-            B=8, Hq=4, Hkv=4, d=64, bs=16, nb=72,
-            lengths=[1088, 1087, 1025, 1100, 1152, 1040, 1151, 1096]),
-        "GQA 8/2, lengths 1 and nb*bs, -1 tail": dict(
-            B=3, Hq=8, Hkv=2, d=64, bs=16, nb=5, lengths=[1, 80, 37],
-            neg_tail=True),
-        "GQA 16/2 d=128 bs=8": dict(B=2, Hq=16, Hkv=2, d=128, bs=8, nb=9,
-                                    lengths=[70, 3], neg_tail=True),
-        "d=32": dict(B=2, Hq=2, Hkv=1, d=32, bs=4, nb=20, lengths=[77, 40]),
-    }
-    for case, kw in paged_cases.items():
-        q, kp, vp, table, lengths = paged_inputs(torch, dev=dev, gen=gen, **kw)
-        scale = kw["d"] ** -0.5
-        check_case(
-            torch,
-            lambda dt: paged_attention_cuda(q.to(dt), kp.to(dt), vp.to(dt),
-                                            table, lengths, scale),
-            lambda dt: paged_attention_ref(
-                *(t.to(dt).float() for t in (q, kp, vp)), table, lengths,
-                scale),
-            "paged_attention_decode", case, errs)
+    check_decode_kernel(torch, dev, gen, errs)
     check_prefill_kernel(torch, dev, gen, errs)
     check_block_kernels(torch, dev, gen, errs)
     check_flash_kernels(torch, dev, gen, errs)
@@ -849,8 +897,6 @@ def time_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels.mosa_attention import (
         mosa_attention_cuda, mosa_attention_ref, mosa_attention_stream_cuda)
-    from repro_torch.serve.paged_attention import (paged_attention_cuda,
-                                                   paged_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {}
@@ -874,29 +920,12 @@ def time_kernels(torch, dev):
     out.update(time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush,
                                   gen))
 
-    Bp, Hq, Hkv, dp, bs, nb = 8, 4, 4, 64, 16, 72
-    lens = [1088, 1087, 1025, 1100, 1152, 1040, 1151, 1096]
-    qd, kp, vp, table, lengths = paged_inputs(torch, Bp, Hq, Hkv, dp, bs, nb,
-                                              lens, dev, gen)
-    scale = dp ** -0.5
-    kk = kp[table.long()].reshape(Bp, nb * bs, Hkv, dp).transpose(1, 2)
-    vv = vp[table.long()].reshape(Bp, nb * bs, Hkv, dp).transpose(1, 2)
-    kk, vv = kk.contiguous(), vv.contiguous()
-    kmask = (torch.arange(nb * bs, device=dev)[None] < lengths[:, None].long())
-    kmask = kmask[:, None, None, :]
-    nbytes = (sum(lens) * Hkv * dp * 2 * 4 + 2 * Bp * Hq * dp * 4
-              + Bp * nb * 4 + Bp * 4)
-    flops = 4 * sum(lens) * Hq * dp
-    out["paged_attention_decode"] = dict(
-        ms=time_ms(torch, lambda: paged_attention_cuda(
-            qd, kp, vp, table, lengths, scale), flush=flush),
-        plain_ms=time_ms(torch, lambda: paged_attention_ref(
-            qd, kp, vp, table, lengths, scale), flush=flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kk, vv, attn_mask=kmask, scale=scale),
-            flush=flush),
-        bytes=nbytes, flops=flops)
-
+    decode_calls = {}
+    for name, lens in (("paged_attention_decode", DECODE_SLICE_LENGTHS),
+                       (f"paged_attention_decode[{DECODE_MIX}]",
+                        DECODE_MIX_LENGTHS)):
+        out[name], decode_calls[name] = time_decode_kernel(
+            torch, dev, gen, flush, lens)
     prefill_calls = {}
     for name, case in (("paged_prefill_attention", PREFILL_SLICE),
                        (f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]",
@@ -917,8 +946,14 @@ def time_kernels(torch, dev):
             f" ms  library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f}"
             f" ms ({t['bound_by']}: {t['bytes'] / 1e6:.2f} MB, "
             f"{t['flops'] / 1e9:.3f} GFLOP){stream}")
-    # #12's two launches apart, after every event timing: a profiler
-    # session slows the event timings that follow it
+    # Device times after every event timing (a profiler session slows the
+    # event timings that follow it): #11, whose ~0.01 ms an event pair
+    # around the Python wrapper may overstate, and #12's two launches apart.
+    for name, call in decode_calls.items():
+        out[name]["device_ms"] = device_ms_by_kernel(
+            torch, call, flush, ("paged_decode_kernel",))["paged_decode_kernel"]
+        log(f"  {name}: kernel {out[name]['device_ms']:.4f} ms (device time, "
+            "torch.profiler)")
     for name, call in prefill_calls.items():
         parts = device_ms_by_kernel(torch, call, flush,
                                     ("split_kernel", "merge_kernel"))
@@ -928,6 +963,43 @@ def time_kernels(torch, dev):
             f"kernel {parts['merge_kernel']:.4f} ms (device time, "
             "torch.profiler)")
     return out
+
+
+def time_decode_kernel(torch, dev, gen, flush, lens):
+    """#11 (fp32) over rows of ``lens`` positions: Hq = Hkv = 4, d 64, 72
+    blocks of 16 under scattered tables.  Bytes: each valid position's K and
+    V read once, q and the output, the table and lengths; operations: 4*d
+    per (query head, valid position).  The yardstick is one SDPA call over
+    the rows' KV gathered (outside the timing) to (B, Hkv, nb * bs, d) with
+    a boolean length mask.  Returns the timings and the kernel's call
+    (``time_kernels`` takes its device time once every event timing is
+    done)."""
+    import torch.nn.functional as F
+    from repro_torch.serve.paged_attention import (paged_attention_cuda,
+                                                   paged_attention_ref)
+    B, Hq, Hkv, d, bs, nb = len(lens), 4, 4, 64, 16, 72
+    q, kp, vp, table, lengths = paged_inputs(torch, B, Hq, Hkv, d, bs, nb,
+                                             lens, dev, gen)
+    scale = d ** -0.5
+    kk = kp[table.long()].reshape(B, nb * bs, Hkv, d).transpose(1, 2)
+    vv = vp[table.long()].reshape(B, nb * bs, Hkv, d).transpose(1, 2)
+    kk, vv = kk.contiguous(), vv.contiguous()
+    kmask = (torch.arange(nb * bs, device=dev)[None] < lengths[:, None].long())
+    kmask = kmask[:, None, None, :]
+    nbytes = (sum(lens) * Hkv * d * 2 * 4 + 2 * B * Hq * d * 4 + B * nb * 4
+              + B * 4)
+
+    def call():
+        return paged_attention_cuda(q, kp, vp, table, lengths, scale)
+
+    return dict(
+        ms=time_ms(torch, call, flush=flush),
+        plain_ms=time_ms(torch, lambda: paged_attention_ref(
+            q, kp, vp, table, lengths, scale), flush=flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=kmask, scale=scale),
+            flush=flush),
+        bytes=nbytes, flops=4 * sum(lens) * Hq * d), call
 
 
 def time_prefill_kernel(torch, dev, gen, flush, case):
@@ -2375,7 +2447,8 @@ def main():
     del sched_server
     sched["kernel_cases"] = {name: times[name] for name in (
         "paged_prefill_attention",
-        f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]")}
+        f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]",
+        f"paged_attention_decode[{DECODE_MIX}]")}
 
     block = {}
     log("[14] main path: block-choice paged serving at full width")
@@ -2477,7 +2550,7 @@ def main():
                     bound_ms=times[name]["bound_ms"],
                     bound_by=times[name]["bound_by"],
                     library_ms=times[name]["library_ms"],
-                    **{k: times[name][k] for k in ("stream_ms",)
+                    **{k: times[name][k] for k in ("stream_ms", "device_ms")
                        if k in times[name]})
                for name, (src, rep) in sources.items()]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -8,8 +8,11 @@ Decode replaces the TPU kernel ``_paged_kernel`` of
     reference: gather the row's blocks back to the contiguous layout and
     run the contiguous decode math (NEG_INF where-mask, fp32 softmax);
   * ``paged_attention_cuda``   — the hand-written CUDA kernel
-    (``csrc/paged_attention.cu``): block-table indirect loads and an online
-    softmax, no gather buffer;
+    (``csrc/paged_attention.cu``): each row's pages split over a cluster of
+    ``DECODE_CLUSTER`` thread blocks, read through the block table with
+    cp.async (no gather buffer), the row's exact max and the merge through
+    distributed shared memory (``decode_grid`` and ``decode_spans`` give the
+    geometry);
   * ``paged_attention_decode`` — the dispatcher: a CUDA tensor goes to the
     kernel, a CPU tensor to the plain version.  There is no other route.
 
@@ -44,12 +47,29 @@ LAUNCHES_PREFILL = LaunchCounter("paged_prefill_attention")
 # csrc/paged_prefill.cu): query rows per block, key positions per split.
 PREFILL_ROWS = 32
 PREFILL_SPLIT_KEYS = 128
+# The decode kernel's constants (csrc/paged_attention.cu): blocks per
+# (row, KV head) cluster, threads per block, positions per pipeline stage,
+# the ring's target bytes and most stages, the score capacity of a window
+# (floats) and the largest table staged whole.
+DECODE_CLUSTER = 8
+DECODE_THREADS = 256
+DECODE_TILE = 32
+DECODE_RING_BYTES = 49152
+DECODE_MAX_STAGES = 8
+DECODE_SCORE_FLOATS = 16384
+DECODE_FULL_TABLE = 4096
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale):
     """q: (B, Hq, d); pools (N, bs, Hkv, d); block_table (B, nb);
     lengths (B,).  Returns (B, Hq, d) in q.dtype: every position
-    ``< length`` of the row attends."""
+    ``< length`` of the row attends.
+
+    A row of length 0 has no valid key: every score is NEG_INF, so every p
+    is 1 and the row gets the mean of V over its (clamped) gathered blocks,
+    as JAX's ``paged_attention_ref`` does.  The kernels (the TPU's
+    ``_paged_kernel`` and ``paged_attention_cuda``) return exact zeros
+    there; the serving paths never attend a row of length 0."""
     B, Hq, d = q.shape
     nb, bs = block_table.shape[1], k_pool.shape[1]
     Hkv = k_pool.shape[2]
@@ -68,6 +88,62 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale):
     out = torch.einsum("bgrqs,bsgd->bgrqd", p, vv.float())
     out = out / p.sum(-1).clamp_min(1e-30)[..., None]
     return out.reshape(B, Hq, d).to(q.dtype)
+
+
+def decode_spans(length: int, nb: int, bs: int):
+    """The decode kernel's work split of one row of ``length`` cached
+    positions (clamped to [0, nb * bs]): for each of the
+    ``DECODE_CLUSTER`` blocks of its cluster, the span [s0, s1) of
+    positions it reads -- a balanced, page-aligned share of the row's
+    ceil(length / bs) pages (rank c takes pages [c * n // 8, (c + 1) * n //
+    8)); an empty span is (s0, s0)."""
+    length = max(0, min(length, nb * bs))
+    pages = -(-length // bs)
+    out = []
+    for c in range(DECODE_CLUSTER):
+        p0 = c * pages // DECODE_CLUSTER
+        p1 = (c + 1) * pages // DECODE_CLUSTER
+        s0 = p0 * bs
+        out.append((s0, max(s0, min(p1 * bs, length))))
+    return out
+
+
+def decode_stages(d: int, elem_bytes: int = 4) -> int:
+    """Tiles of the decode kernel's ring: ``DECODE_RING_BYTES`` of tiles of
+    ``DECODE_TILE`` positions, 2 to ``DECODE_MAX_STAGES``."""
+    n = DECODE_RING_BYTES // (DECODE_TILE * d * elem_bytes)
+    return min(DECODE_MAX_STAGES, max(2, n))
+
+
+def decode_grid(B: int, Hq: int, Hkv: int, d: int, nb: int, bs: int,
+                elem_bytes: int = 4):
+    """Launch geometry of the decode kernel for B rows of ``nb`` blocks of
+    ``bs`` (elements of ``elem_bytes``): (grid, cluster, shared-memory
+    bytes, window).  One cluster of ``DECODE_CLUSTER`` blocks per (row, KV
+    head).  A window is the span positions whose scores shared memory
+    holds: the longest span (ceil(nb / 8) pages) rounded up to whole
+    tiles, capped at ``DECODE_SCORE_FLOATS / R`` floats; a longer span
+    streams its later windows' keys again in the second pass.  Shared
+    memory: the ring (``decode_stages`` tiles), the scores [R][window], the
+    partials and denominators the peers push, the maxima and warp slots,
+    the row's table entries (rows of more than ``DECODE_FULL_TABLE`` blocks
+    read them from device memory instead)."""
+    R = Hq // Hkv
+
+    def round4(x):
+        return (x + 3) & ~3
+
+    pages = -(-nb // DECODE_CLUSTER)
+    tile = DECODE_TILE
+    cap = DECODE_SCORE_FLOATS // R // tile * tile
+    window = max(tile, min(-(-(pages * bs) // tile) * tile, cap))
+    slots = nb if nb <= DECODE_FULL_TABLE else 0
+    warps = DECODE_THREADS // 32
+    floats = (R * window + round4(R * d)
+              + (DECODE_CLUSTER + 2 + warps) * MAX_GROUP)
+    smem = (elem_bytes * decode_stages(d, elem_bytes) * tile * d
+            + 4 * floats + 4 * round4(slots))
+    return (DECODE_CLUSTER * B * Hkv,), (DECODE_CLUSTER,), smem, window
 
 
 def _check_geometry(q, k_pool):

@@ -33,7 +33,11 @@ tolerances (GQA, q_offset, windows, ragged tiles, Tq not a multiple of the
 64-row tile with the window's edge inside a key tile, segments of length
 1, a padding tail that must come back as zeros) and to themselves (two
 launches bitwise equal), and the window model is served on the card and
-the CPU with identical greedy tokens.
+the CPU with identical greedy tokens.  Paged decode (#11) is held at the
+serving slice, at the Scheduler mix with a row of length 0 (exact zeros),
+at span boundaries of its 8-block cluster, at a row whose scores take two
+windows and at a table read from device memory; two launches bitwise
+equal, one count per call.
 """
 
 import pytest
@@ -81,20 +85,43 @@ def test_mosa_attention_kernel_matches_plain(dev, dtype, S, d, with_seg):
                                rtol=_tol(dtype))
 
 
+# (Hq, Hkv, d, bs, nb, lengths): rows of the old cases (lengths 1, nb * bs
+# and bs + 3), the serving slice, the Scheduler mix with a row of length 0,
+# span boundaries of the 8-block cluster (1023-1025 positions, 7-9 pages),
+# a row whose scores take two windows (R 8, 17593 positions) and a table of
+# more blocks than the kernel stages (4200 blocks of 2).
+PAGED_DECODE_CASES = {
+    "4/4 d64 bs16": (4, 4, 64, 16, 6, [1, 96, 19]),
+    "8/2 d64 bs16": (8, 2, 64, 16, 6, [1, 96, 19]),
+    "16/2 d128 bs8": (16, 2, 128, 8, 6, [1, 48, 11]),
+    "2/1 d32 bs4": (2, 1, 32, 4, 6, [1, 24, 7]),
+    "slice": (4, 4, 64, 16, 72,
+              [1088, 1087, 1025, 1100, 1152, 1040, 1151, 1096]),
+    "scheduler mix, length 0": (4, 4, 64, 16, 72,
+                                [0, 130, 1152, 517, 260, 1024, 700, 128]),
+    "span boundaries": (8, 2, 64, 16, 72, [1023, 1024, 1025, 127, 128, 129]),
+    "two windows, R 8": (8, 1, 32, 16, 1100, [17593, 5]),
+    "table from device memory": (2, 1, 32, 2, 4200, [8399, 0, 9]),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,d,bs", [(4, 4, 64, 16), (8, 2, 64, 16),
-                                         (16, 2, 128, 8), (2, 1, 32, 4)])
-def test_paged_decode_kernel_matches_plain(dev, dtype, Hq, Hkv, d, bs):
+@pytest.mark.parametrize("case", list(PAGED_DECODE_CASES))
+def test_paged_decode_kernel_matches_plain(dev, dtype, case):
+    """#11 against the plain version (rows of length 0: exact zeros, where
+    the plain version, like JAX's gather reference, gives the mean of V);
+    two launches bitwise equal; one count per call."""
     from repro_torch.serve.paged_attention import (LAUNCHES,
                                                    paged_attention_cuda,
                                                    paged_attention_ref)
+    Hq, Hkv, d, bs, nb, lens = PAGED_DECODE_CASES[case]
     g = torch.Generator(device=dev).manual_seed(1)
-    B, nb = 3, 6
+    B = len(lens)
     N = B * nb
     kp = torch.randn(N, bs, Hkv, d, device=dev, generator=g).to(dtype)
     vp = torch.randn(N, bs, Hkv, d, device=dev, generator=g).to(dtype)
     table = torch.randperm(N, device=dev, generator=g).view(B, nb)
-    lengths = torch.tensor([1, nb * bs, bs + 3], dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     used = (lengths.long() + bs - 1) // bs
     table = torch.where(torch.arange(nb, device=dev)[None] < used[:, None],
                         table, -1).to(torch.int32).contiguous()
@@ -102,10 +129,15 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, Hq, Hkv, d, bs):
     before = LAUNCHES.count
     got = paged_attention_cuda(q, kp, vp, table, lengths, d ** -0.5)
     assert LAUNCHES.count == before + 1
+    again = paged_attention_cuda(q, kp, vp, table, lengths, d ** -0.5)
+    assert LAUNCHES.count == before + 2
+    assert torch.equal(got, again)
+    empty = lengths == 0
+    assert (got[empty] == 0).all()
     want = paged_attention_ref(q.float(), kp.float(), vp.float(), table,
                                lengths, d ** -0.5)
-    torch.testing.assert_close(got.float(), want, atol=_tol(dtype),
-                               rtol=_tol(dtype))
+    torch.testing.assert_close(got[~empty].float(), want[~empty],
+                               atol=_tol(dtype), rtol=_tol(dtype))
 
 
 def test_server_defaults_to_the_card(dev):
