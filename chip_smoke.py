@@ -27,7 +27,9 @@ Phases (any failure raises, so the script exits nonzero):
      prefill (padding tokens and inactive segments exact zeros; cases
      across its key splits of 128: pasts on, one before and one after a
      split boundary, a token at the deepest position, prefix blocks shared
-     across a split, R = 3; two launches bitwise equal), and the
+     across a split, R = 3; two launches bitwise equal), both also at head
+     dims 16, 24, 48 and 96, which the wrappers zero-pad to the kernels'
+     widths (every wrapper call one count), and the
      block-choice kernels (#5 and #6 on both routes as #1 and #2, invalid
      query rows exact zeros; the fused #7 + #8 on every case with S = NB *
      bs <= 64, two launches bitwise equal, and the split #7 and #8, called
@@ -130,12 +132,26 @@ Phases (any failure raises, so the script exits nonzero):
      the loss within 1e-5 relative of the chunked route's on the same
      weights; 23c: #10 through ``flash_attention_varlen`` on a packed
      stream of eight prompts — exactly one launch, each segment equal to
-     #9 on that segment alone.
+     #9 on that segment alone;
+ 24. the paper's IsoFLOP sweep at full width through ``run_isoflop``:
+     ``mosa-paper`` tiny at T 1024, dense, mosa, fixed and routing at
+     sparsities 8 and 32 (7 points), 6 steps each of 64 x 1024 tokens as 8
+     microbatches, kernel path.  Per point the counters are zeroed before
+     and read after: mosa32 exactly 288 each of #2 and the fused backward,
+     mosa8 288 of #2 (the streaming route, k = 128) and 288 each of the
+     split #3 and #4, every other point 0; every loss finite; the
+     Trainer's metrics file and trace (under ``build/isoflop/``)
+     hold 6 ``train.step_time_s`` observations and 6 ``train_step`` spans,
+     whose median over steps 1-5 gives the step time and tokens/s; the
+     dense and mosa budgets within 5%;
+ 25. the card against the CPU for ``fixed32`` and ``routing32`` at full
+     width and the same weights, as phase 9 (routing: identical cluster
+     selections in every layer first), under deterministic algorithms.
 
-Phases 3 and 4 hold and time #9 and #10 too.  The last eight lines are the
+Phases 3 and 4 hold and time #9 and #10 too.  The last nine lines are the
 ``serve`` JSON, the ``train`` JSON, the ``sched`` JSON, the ``block``
-JSON, the ``window`` JSON, the ``kernels`` JSON, the ``nvidia-smi`` name
-and power limit, and the result JSON.
+JSON, the ``window`` JSON, the ``sweep`` JSON, the ``kernels`` JSON, the
+``nvidia-smi`` name and power limit, and the result JSON.
 """
 
 from __future__ import annotations
@@ -229,7 +245,8 @@ def check_case(torch, kernel, plain, name, case, errs, parts=None,
     """Runs ``kernel`` in fp32 and bf16 against ``plain`` in fp32 on the
     same (rounded) inputs; records the fp32 error of the slice's case.
     With ``parts``, both return a tuple of outputs, each checked and
-    recorded as ``name.part``.  The parts named in ``zeros`` are zero in
+    recorded as ``name.part``; the fp32 error of [24]'s mosa8 case is
+    recorded as ``label@sweep``.  The parts named in ``zeros`` are zero in
     exact arithmetic on this case (dq and dk at S = 1, where a softmax over
     one key passes no gradient to its score): in both dtypes the kernel's
     output and the plain version's must each lie within ``FP32_TOL`` of
@@ -254,6 +271,8 @@ def check_case(torch, kernel, plain, name, case, errs, parts=None,
             e = max_err(torch, g, w, atol, rtol)
             if dt == torch.float32 and case.startswith("slice"):
                 errs[label] = e
+            if dt == torch.float32 and case.startswith("sweep"):
+                errs[f"{label}@sweep"] = e
             log(f"  {label:31s} {case:40s} {str(dt):15s} max|err| {e:.3e} "
                 f"(atol {atol:.2e}, rtol {rtol:.2e})")
 
@@ -332,8 +351,14 @@ def paged_inputs(torch, B, Hq, Hkv, d, bs, nb, lengths, dev, gen,
 
 
 # ---------------------------------------------------------------- checks
+# [24]'s mosa8 point: (B, H, S, d) of its #2, #3 and #4 (a microbatch of 8
+# rows, 69 MoSA heads, k = 1024 // 8 selected tokens)
+SWEEP_MOSA8 = (8, 69, 128, 64)
+SWEEP_MOSA8_NAME = "mosa8 8x69x128"
 MOSA_CASES = {
     "slice (8,276,32,64)": dict(B=8, H=276, S=32, d=64, T=1024),
+    # [24]'s mosa8 (k = 128 > 64: the streaming #2, the split #3 and #4)
+    "sweep mosa8 (8,69,128,64)": dict(zip("BHSd", SWEEP_MOSA8), T=1024),
     "ragged S=37, idx=-1 keys, r=0 rows, seg": dict(
         B=2, H=3, S=37, d=64, T=200, neg_keys=20, zero_rows=10,
         with_seg=True),
@@ -445,9 +470,17 @@ def check_train_kernels(torch, dev, gen, errs):
                                          errs["mosa_attention_fwd_res.lse"])
     errs["mosa_attention_bwd"] = max(errs[f"mosa_attention_bwd.{p}"]
                                      for p in ("dq", "dk", "dv"))
-    errs["mosa_attention_bwd_dq"] = errs["mosa_attention_bwd_split.dq"]
-    errs["mosa_attention_bwd_dkv"] = max(errs["mosa_attention_bwd_split.dk"],
-                                         errs["mosa_attention_bwd_split.dv"])
+    # the split #3 and #4 run on a main path only at [24]'s mosa8 (their
+    # S 32 errors stay as "[S 32]"), and so does the streaming #2
+    for at, tag in (("@sweep", ""), ("", "[S 32]")):
+        errs[f"mosa_attention_bwd_dq{tag}"] = errs[
+            f"mosa_attention_bwd_split.dq{at}"]
+        errs[f"mosa_attention_bwd_dkv{tag}"] = max(
+            errs[f"mosa_attention_bwd_split.dk{at}"],
+            errs[f"mosa_attention_bwd_split.dv{at}"])
+    errs[f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]"] = max(
+        errs["mosa_attention_fwd_res.o_pre@sweep"],
+        errs["mosa_attention_fwd_res.lse@sweep"])
 
 
 # Block choice (#5-#8): the slice's shape (B*H = 2208, NB 2, bs 16, S 32,
@@ -723,6 +756,17 @@ PREFILL_CASES = {
         segs=[(0, 120, 13), (1, 0, 30), (2, 250, 20)], total=64),
     PREFILL_FULL_CHUNK: dict(
         Hq=4, Hkv=4, d=64, bs=16, nb=72, segs=[(0, 768, 256)], total=256),
+    # head dims outside (32, 64, 128), zero-padded by the wrapper
+    "d=16 (padded to 32) 4/4, same edges": dict(
+        Hq=4, Hkv=4, d=16, bs=4, nb=6, segs=PREFILL_EDGE_SEGS, total=24),
+    "d=24 (padded to 32) GQA 8/2, same edges": dict(
+        Hq=8, Hkv=2, d=24, bs=4, nb=6, segs=PREFILL_EDGE_SEGS, total=24),
+    "d=48 (padded to 64) 4/4 bs=16 nb=40, pasts across splits": dict(
+        Hq=4, Hkv=4, d=48, bs=16, nb=40, segs=[(0, 0, 64), (1, 256, 64)],
+        total=128),
+    "d=96 (padded to 128) GQA 8/2 bs=8, shared prefix block": dict(
+        Hq=8, Hkv=2, d=96, bs=8, nb=5, segs=[(0, 0, 33), (1, 8, 7)],
+        total=48, share=1),
 }
 
 
@@ -755,9 +799,19 @@ def prefill_inputs(torch, dev, gen, Hq, Hkv, d, bs, nb, segs, total,
     return q, kp, vp, table, cu, rows, past
 
 
+def counted_once(counter, fn, what):
+    """``fn()``, which must add exactly one to ``counter``."""
+    before = counter.count
+    out = fn()
+    if counter.count != before + 1:
+        raise AssertionError(f"{what}: {counter.count - before} counts for "
+                             "one wrapper call")
+    return out
+
+
 def check_prefill_kernel(torch, dev, gen, errs):
     from repro_torch.serve.paged_attention import (
-        packed_token_layout, paged_prefill_attention_cuda,
+        LAUNCHES_PREFILL, packed_token_layout, paged_prefill_attention_cuda,
         paged_prefill_attention_ref)
     for case, kw in PREFILL_CASES.items():
         q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen,
@@ -769,7 +823,9 @@ def check_prefill_kernel(torch, dev, gen, errs):
         def kernel(dt):
             args = (q.to(dt), kp.to(dt), vp.to(dt), table, cu, rows, past,
                     scale)
-            out = paged_prefill_attention_cuda(*args)
+            out = counted_once(LAUNCHES_PREFILL,
+                               lambda: paged_prefill_attention_cuda(*args),
+                               f"paged_prefill_attention ({case})")
             dead = row_of_tok < 0
             if dead.any() and (out[dead] != 0).any():
                 raise AssertionError(f"paged_prefill_attention ({case}): "
@@ -791,6 +847,8 @@ def check_prefill_kernel(torch, dev, gen, errs):
 # (row, KV head) is a cluster of 8 blocks that split the row's pages.
 DECODE_SLICE = "slice B=8 Hq=Hkv=4 d=64 bs=16 nb=72"
 DECODE_SLICE_LENGTHS = [1088, 1087, 1025, 1100, 1152, 1040, 1151, 1096]
+# [4] times the decode and prefill slices at this head dim (padded to 64)
+PAD_CASE = "d 48, padded to 64"
 # the Scheduler's rows at one decode step (scattered tables)
 DECODE_MIX = "Scheduler mix, 8 rows of 128-1152"
 DECODE_MIX_LENGTHS = [130, 1152, 517, 260, 1024, 700, 128, 900]
@@ -818,6 +876,19 @@ DECODE_CASES = {
     "4200 blocks of 2: table from device memory": dict(
         B=2, Hq=2, Hkv=1, d=32, bs=2, nb=4200, lengths=[8399, 5],
         neg_tail=True),
+    # head dims outside (32, 64, 128): the wrapper zero-pads q and the
+    # pools to the next of them and slices the output back
+    "d=16 (padded to 32), GQA 8/2": dict(
+        B=3, Hq=8, Hkv=2, d=16, bs=16, nb=9, lengths=[1, 144, 37],
+        neg_tail=True),
+    "d=24 (padded to 32), 4/4 bs=8": dict(
+        B=3, Hq=4, Hkv=4, d=24, bs=8, nb=20, lengths=[160, 77, 9]),
+    "d=48 (padded to 64), GQA 8/2": dict(
+        B=3, Hq=8, Hkv=2, d=48, bs=16, nb=72, lengths=[1152, 1025, 130],
+        neg_tail=True),
+    "d=96 (padded to 128), GQA 16/2 bs=8": dict(
+        B=2, Hq=16, Hkv=2, d=96, bs=8, nb=9, lengths=[70, 3],
+        neg_tail=True),
 }
 
 
@@ -826,7 +897,8 @@ def check_decode_kernel(torch, dev, gen, errs):
     (the plain version, like JAX's gather reference, gives the mean of V
     there; the TPU kernel gives zeros, ROADMAP C), two launches bitwise
     equal, the other rows against the plain version."""
-    from repro_torch.serve.paged_attention import (paged_attention_cuda,
+    from repro_torch.serve.paged_attention import (LAUNCHES,
+                                                   paged_attention_cuda,
                                                    paged_attention_ref)
     for case, kw in DECODE_CASES.items():
         q, kp, vp, table, lengths = paged_inputs(torch, dev=dev, gen=gen,
@@ -836,7 +908,8 @@ def check_decode_kernel(torch, dev, gen, errs):
 
         def kernel(dt):
             args = (q.to(dt), kp.to(dt), vp.to(dt), table, lengths, scale)
-            out = paged_attention_cuda(*args)
+            out = counted_once(LAUNCHES, lambda: paged_attention_cuda(*args),
+                               f"paged_attention_decode ({case})")
             if (out[empty] != 0).any():
                 raise AssertionError(f"paged_attention_decode ({case}): a "
                                      "row of length 0 is not zero")
@@ -919,6 +992,18 @@ def time_kernels(torch, dev):
         bytes=nbytes, flops=flops)
     out.update(time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush,
                                   gen))
+    # [24]'s mosa8 (k = 128): the streaming #2 and the split #3 and #4 at
+    # the shape their main path gives them; the split rows' S 32 times
+    # (a shape whose route is the fused kernel) stay as "[S 32]"
+    q, k, v, idx, r, _ = mosa_inputs(torch, *SWEEP_MOSA8, 1024, dev, gen)
+    mask = (idx[..., :, None] >= idx[..., None, :]) & (idx >= 0)[..., None, :]
+    mosa8 = time_train_kernels(torch, q, k, v, idx, r, mask, int(mask.sum()),
+                               flush, gen)
+    for name in ("mosa_attention_bwd_dq", "mosa_attention_bwd_dkv"):
+        out[f"{name}[S 32]"] = out[name]
+        out[name] = mosa8[name]
+    out[f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]"] = mosa8[
+        "mosa_attention_fwd_res"]
 
     decode_calls = {}
     for name, lens in (("paged_attention_decode", DECODE_SLICE_LENGTHS),
@@ -932,6 +1017,12 @@ def time_kernels(torch, dev):
                         PREFILL_FULL_CHUNK)):
         out[name], prefill_calls[name] = time_prefill_kernel(
             torch, dev, gen, flush, case)
+    # the pad route (ROADMAP C item 1): the slices at d 48, which the
+    # wrappers zero-pad to 64 (q and both pools copied on every call)
+    out[f"paged_attention_decode[{PAD_CASE}]"], _ = time_decode_kernel(
+        torch, dev, gen, flush, DECODE_SLICE_LENGTHS, d=48)
+    out[f"paged_prefill_attention[{PAD_CASE}]"], _ = time_prefill_kernel(
+        torch, dev, gen, flush, PREFILL_SLICE, d=48)
     out.update(time_block_kernels(torch, dev, gen, flush))
     out.update(time_flash_kernels(torch, dev, gen, flush))
 
@@ -965,9 +1056,10 @@ def time_kernels(torch, dev):
     return out
 
 
-def time_decode_kernel(torch, dev, gen, flush, lens):
-    """#11 (fp32) over rows of ``lens`` positions: Hq = Hkv = 4, d 64, 72
-    blocks of 16 under scattered tables.  Bytes: each valid position's K and
+def time_decode_kernel(torch, dev, gen, flush, lens, d=64):
+    """#11 (fp32) over rows of ``lens`` positions: Hq = Hkv = 4, d 64 (or
+    ``d``: outside 32, 64, 128 the wrapper's pad route), 72 blocks of 16
+    under scattered tables.  Bytes: each valid position's K and
     V read once, q and the output, the table and lengths; operations: 4*d
     per (query head, valid position).  The yardstick is one SDPA call over
     the rows' KV gathered (outside the timing) to (B, Hkv, nb * bs, d) with
@@ -977,7 +1069,7 @@ def time_decode_kernel(torch, dev, gen, flush, lens):
     import torch.nn.functional as F
     from repro_torch.serve.paged_attention import (paged_attention_cuda,
                                                    paged_attention_ref)
-    B, Hq, Hkv, d, bs, nb = len(lens), 4, 4, 64, 16, 72
+    B, Hq, Hkv, bs, nb = len(lens), 4, 4, 16, 72
     q, kp, vp, table, lengths = paged_inputs(torch, B, Hq, Hkv, d, bs, nb,
                                              lens, dev, gen)
     scale = d ** -0.5
@@ -1002,10 +1094,11 @@ def time_decode_kernel(torch, dev, gen, flush, lens):
         bytes=nbytes, flops=4 * sum(lens) * Hq * d), call
 
 
-def time_prefill_kernel(torch, dev, gen, flush, case):
+def time_prefill_kernel(torch, dev, gen, flush, case, d=None):
     """#12 on the chunk ``PREFILL_CASES[case]`` (fp32): the slice's 256
     packed tokens in 4 segments of 64 with pasts 0, 256, 512, 960, or one
-    segment of 256 at past 768; bs 16.  Bytes: q and the output, and each
+    segment of 256 at past 768; bs 16; ``d`` overrides the case's head
+    dim (outside 32, 64, 128: the wrapper's pad route).  Bytes: q and the output, and each
     active segment's visible K/V read once; operations: 4*d per valid
     (query, key) pair and query head, counted from this run's segments.
     The yardstick is one SDPA call over the per-segment KV gathered (outside
@@ -1017,7 +1110,7 @@ def time_prefill_kernel(torch, dev, gen, flush, case):
     from repro_torch.serve.paged_attention import (
         packed_token_layout, paged_prefill_attention_cuda,
         paged_prefill_attention_ref)
-    kw = PREFILL_CASES[case]
+    kw = dict(PREFILL_CASES[case], **({} if d is None else {"d": d}))
     q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen, **kw)
     Hq, Hkv, d, bs = kw["Hq"], kw["Hkv"], kw["d"], kw["bs"]
     scale = d ** -0.5
@@ -1148,7 +1241,8 @@ def time_block_kernels(torch, dev, gen, flush):
 
 
 def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
-    """The training kernels at the slice's shapes (fp32).  Bytes: each
+    """The training kernels at the shapes of ``q`` (fp32; the fused
+    backward only where it fits).  Bytes: each
     input read once, each output written once; operations: 2*d per product
     of two d-vectors over the valid (query, key) pairs of this run's
     indices.  The plain versions compute dq, dk and dv in one call, and the
@@ -1162,8 +1256,9 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
         mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref,
         mosa_attention_fwd_res_stream_cuda)
     from repro_torch.kernels.mosa_backward import (
-        mosa_attention_bwd_dkv_cuda, mosa_attention_bwd_dq_cuda,
-        mosa_attention_bwd_fused_cuda, mosa_attention_bwd_ref)
+        fused_bwd_fits, mosa_attention_bwd_dkv_cuda,
+        mosa_attention_bwd_dq_cuda, mosa_attention_bwd_fused_cuda,
+        mosa_attention_bwd_ref)
     B, H, S, d = q.shape
     vec, row = B * H * S * d * 4, B * H * S * 4      # fp32 (.., d) / (..)
     o_pre, lse = mosa_attention_fwd_res_cuda(q, k, v, idx)
@@ -1185,15 +1280,17 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
         return gt, dr, (gt * o_pre).sum(-1).contiguous()
 
     prologue_ms = time_ms(torch, prologue, flush=flush)
-    log(f"  the Function's backward prologue (g~, dr, delta): "
-        f"{prologue_ms:.4f} ms")
-    return {
+    log(f"  the Function's backward prologue (g~, dr, delta) at "
+        f"({B},{H},{S},{d}): {prologue_ms:.4f} ms")
+    out = {} if not fused_bwd_fits(S, d) else {
         "mosa_attention_bwd": dict(
             ms=time_ms(torch, lambda: mosa_attention_bwd_fused_cuda(
                 *bwd_args), flush=flush),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
             bytes=7 * vec + 3 * row, flops=10 * pairs * d,
-            prologue_ms=prologue_ms),
+            prologue_ms=prologue_ms)}
+    return {
+        **out,
         "mosa_attention_fwd_res": dict(
             ms=time_ms(torch, lambda: mosa_attention_fwd_res_cuda(
                 q, k, v, idx), flush=flush),
@@ -1214,7 +1311,8 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
             ms=time_ms(torch, lambda: mosa_attention_bwd_dkv_cuda(*bwd_args),
                        flush=flush),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
-            bytes=4 * vec + 3 * row + 2 * vec, flops=8 * pairs * d),
+            bytes=4 * vec + 3 * row + 2 * vec, flops=8 * pairs * d,
+            prologue_ms=prologue_ms),
     }
 
 
@@ -1529,34 +1627,54 @@ def train_cross_check(torch, trainer):
     256 tokens, one loss and backward.  Selections first: a near-tie of
     router scores must show as a selection difference, not hide in a
     looser tolerance."""
+    return model_cross_check(torch, trainer.model, trainer.model_cfg,
+                             layer_selections)
+
+
+def model_cross_check(torch, gpu, mc, selections, seq_len=256):
+    """``train_cross_check`` of the model ``gpu`` (config ``mc``) at batch
+    1 x ``seq_len`` with ``selections(torch, model, tokens)`` (None: no
+    selection to hold) for the per-layer selections; the parameters
+    without a gradient must be exactly the model's ``gradient_free()``
+    (the routing centroids), and are skipped."""
     from repro_torch.data.pipeline import PackedLMDataset, SyntheticCorpus
     from repro_torch.nn.transformer import TransformerLM
-    mc = trainer.model_cfg
-    gpu = trainer.model
     cpu = TransformerLM(mc, device="cpu")
     cpu.load_state_dict({k: v.detach().cpu()
                          for k, v in gpu.state_dict().items()})
     batch = PackedLMDataset(SyntheticCorpus(vocab=mc.vocab, seed=1),
-                            seq_len=256, global_batch=1).batch_at(0)
+                            seq_len=seq_len, global_batch=1).batch_at(0)
     batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     card = next(gpu.parameters()).device
-    sel_g = layer_selections(torch, gpu, batch["tokens"].to(card))
-    sel_c = layer_selections(torch, cpu, batch["tokens"])
-    differ = [int((a != b).any(-1).sum()) for a, b in zip(sel_g, sel_c)]
-    log(f"  heads whose selection differs, per layer: {differ}")
-    if any(differ):
-        raise AssertionError(f"selections differ between card and CPU: "
-                             f"{differ} heads per layer")
+    differ = []
+    if selections is not None:
+        sel_g = selections(torch, gpu, batch["tokens"].to(card))
+        sel_c = selections(torch, cpu, batch["tokens"])
+        differ = [int((a != b).any(-1).sum()) for a, b in zip(sel_g, sel_c)]
+        log(f"  heads whose selection differs, per layer: {differ}")
+        if any(differ):
+            raise AssertionError(f"selections differ between card and CPU: "
+                                 f"{differ} heads per layer")
     out = {}
     for name, model, dev in (("gpu", gpu, card), ("cpu", cpu, "cpu")):
         loss, _ = model.loss({k: v.to(dev) for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-        out[name] = (loss.item(), [g.cpu() for g in grads])
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        out[name] = (loss.item(), [None if g is None else g.cpu()
+                                   for g in grads])
     (lg, gg), (lc, gc) = out["gpu"], out["cpu"]
     loss_rel = abs(lg - lc) / abs(lc)
     names = [k for k, _ in cpu.named_parameters()]
+    if [a is None for a in gg] != [b is None for b in gc]:
+        raise AssertionError("card and CPU differ in which parameters get "
+                             "a gradient")
+    unreached = {k for k, b in zip(names, gc) if b is None}
+    if unreached != cpu.gradient_free():
+        raise AssertionError(f"the loss does not reach {unreached}; the "
+                             f"model's gradient-free set is "
+                             f"{cpu.gradient_free()}")
     worst = max((((a - b).abs().max() / b.abs().max()).item(), k)
-                for k, a, b in zip(names, gg, gc))
+                for k, a, b in zip(names, gg, gc) if a is not None)
     log(f"  loss gpu {lg:.7f} cpu {lc:.7f} (rel {loss_rel:.2e}, tol 1e-5); "
         f"worst grad max|gpu - cpu| / max|cpu| {worst[0]:.2e} in {worst[1]} "
         f"(tol 1e-4)")
@@ -1596,6 +1714,10 @@ def profile_train(torch, trainer, steps=2):
         torch.cuda.synchronize()
     res = profile_summary(torch, prof, wall_ms, steps)
     top = res.pop("top")
+    res["mosa_kernels_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "mosa_" in e.key) / 1e3 / steps
     by_op = {}
     for e in prof.events():
         for kern in getattr(e, "kernels", ()):
@@ -1606,7 +1728,9 @@ def profile_train(torch, trainer, steps=2):
         ms, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]]
     log(f"  microbatch {mb} x {cfg.seq_len}: {wall_ms:.2f} ms wall, "
         f"{res['device_ms']:.2f} ms on the device (idle share "
-        f"{res['idle_share']:.2f}), {res['launches']:.0f} kernel launches")
+        f"{res['idle_share']:.2f}; the MoSA kernels "
+        f"{res['mosa_kernels_ms']:.2f} ms), {res['launches']:.0f} kernel "
+        "launches")
     log("  kernels by device time per microbatch:")
     for ms, count, name in top:
         log(f"    {ms:7.3f} ms {count:5.0f}x  {name[:90]}")
@@ -2374,6 +2498,198 @@ def varlen_entry(torch):
     return dict(launches=launches, per_row_err=err)
 
 
+# ------------------------------------------- the IsoFLOP sweep ([24], [25])
+SWEEP_STEPS = 6              # per point; step 0 untimed
+SWEEP_VARIANTS = ("dense", "mosa", "fixed", "routing")
+
+
+def sweep_heads(torch, cfg):
+    """The sparse heads of a point's first layer as the model builds it
+    (on the meta device: no memory, no init); a dense point's attention
+    heads."""
+    from repro_torch.nn.transformer import TransformerLM
+    mixer = TransformerLM(cfg, device="meta").layers[0].mixer
+    return (mixer.sparse.n_heads if hasattr(mixer, "sparse")
+            else mixer.cfg.n_heads)
+
+
+def sweep_launches(point):
+    """Exact launches of one point's ``SWEEP_STEPS`` steps (6 layers x 8
+    microbatches each): k = 32 takes the one-row #2 and the fused
+    backward, k = 128 the streaming #2 and the split #3 and #4; the dense
+    and baseline points run no kernel."""
+    if point.variant != "mosa":
+        return want_launches()
+    n = point.cfg.n_layers * 8 * SWEEP_STEPS
+    k = 1024 // point.sparsity
+    names = (("mosa_attention_fwd_res", "mosa_attention_bwd") if k <= 64
+             else ("mosa_attention_fwd_res", "mosa_attention_bwd_dq",
+                   "mosa_attention_bwd_dkv"))
+    return want_launches(**{name: n for name in names})
+
+
+def isoflop_slice(torch):
+    """[24]: the paper's IsoFLOP sweep at full width through
+    ``run_isoflop`` (the ``Trainer``, kernel path): tiny at T 1024, dense,
+    mosa, fixed and routing at sparsities 8 and 32, ``SWEEP_STEPS`` steps
+    of 64 x 1024 tokens as 8 microbatches per point.  Per point: the
+    counters zeroed just before and read just after (exact, see
+    ``sweep_launches``), every loss finite, the metrics file's
+    ``train.step_time_s`` and the trace's ``train_step`` spans one per
+    step; the step time (median over steps 1-5) comes from those spans."""
+    from repro_torch import obs
+    from repro_torch.train.isoflop import (budget_match_error, isoflop_sweep,
+                                           run_isoflop)
+    points = isoflop_sweep(preset="full", size="tiny", T=1024,
+                           sparsities=(8, 32), variants=SWEEP_VARIANTS)
+    err = budget_match_error([p for p in points
+                              if p.variant in ("dense", "mosa")])
+    log(f"  {len(points)} points; budget_match_error over dense and mosa "
+        f"{err:.4f} (tol 0.05), over all {budget_match_error(points):.4f}")
+    if not err < 0.05:
+        raise AssertionError(f"dense/mosa budgets differ by {err:.4f}")
+    out_dir = ROOT / "build" / "isoflop"           # git-ignored
+    out_dir.mkdir(parents=True, exist_ok=True)
+    counters = kernel_counters()
+    ref = points[0].flops_fwd_per_token
+    tokens = 64 * 1024
+    rows, totals = [], want_launches()
+    for pt in points:
+        mpath = out_dir / f"{pt.name}.metrics.jsonl"
+        tpath = out_dir / f"{pt.name}.trace.json"
+        mpath.unlink(missing_ok=True)
+        obs.registry().reset()
+        obs.tracer().reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.count = 0
+        res = run_isoflop([pt], steps=SWEEP_STEPS, seq_len=1024,
+                          global_batch=64, train_kw={
+                              "microbatch": 8, "mosa_impl": "kernel",
+                              "log_every": 1, "metrics_path": str(mpath),
+                              "trace_path": str(tpath)})[pt.name]
+        launches = {name: c.count for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = sweep_launches(pt)
+        if launches != want:
+            raise AssertionError(f"{pt.name}: launch counts {launches} != "
+                                 f"{want}")
+        totals = {k: totals[k] + v for k, v in launches.items()}
+        losses = [h["loss"] for h in res["loss_curve"]]
+        if len(losses) != SWEEP_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{pt.name}: bad loss curve {losses}")
+        snap = obs.read_last_snapshot(str(mpath))
+        n_obs = snap["histograms"]["train.step_time_s"]["count"]
+        spans = [e for e in json.loads(tpath.read_text())["traceEvents"]
+                 if e.get("name") == "train_step"]
+        if n_obs != SWEEP_STEPS or len(spans) != SWEEP_STEPS:
+            raise AssertionError(f"{pt.name}: {n_obs} train.step_time_s "
+                                 f"observations, {len(spans)} train_step "
+                                 f"spans; want {SWEEP_STEPS} each")
+        step_ms = [e["dur"] / 1e3 for e in spans]
+        med = statistics.median(step_ms[1:])
+        row = dict(name=pt.name, variant=pt.variant, sparsity=pt.sparsity,
+                   heads=sweep_heads(torch, pt.cfg),
+                   flops_fwd_per_token=pt.flops_fwd_per_token,
+                   flops_ratio=pt.flops_fwd_per_token / ref,
+                   step_ms=med, step_ms_each=step_ms,
+                   tokens_per_s=tokens / (med / 1e3),
+                   losses=losses, peak_gib=peak / 2 ** 30,
+                   launches={k: v for k, v in launches.items() if v})
+        rows.append(row)
+        log(f"  {pt.name}: {row['variant']} sparsity {row['sparsity']}, "
+            f"{row['heads']} heads; {row['flops_fwd_per_token']} FLOPs/token "
+            f"({row['flops_ratio']:.4f} x dense); step {med:.1f} ms (median "
+            f"of steps 1-{SWEEP_STEPS - 1}; each "
+            f"{[round(x, 1) for x in step_ms]}) = {row['tokens_per_s']:.0f} "
+            f"tokens/s; peak {row['peak_gib']:.3f} GiB; losses "
+            f"{[round(x, 4) for x in losses]}; launches {row['launches']}")
+    return dict(points=rows, budget_match_error=err,
+                budget_match_error_all=budget_match_error(points),
+                launches_total=totals)
+
+
+def profile_sweep_mosa(torch):
+    """[24b]: one microbatch (8 x 1024) of the sweep's mosa8 and mosa32
+    points under ``torch.profiler``, as [10]: where their steps' device
+    time goes, the MoSA kernels' share included."""
+    from repro_torch.train.isoflop import isoflop_sweep
+    from repro_torch.train.loop import TrainConfig, Trainer
+    out = {}
+    for pt in isoflop_sweep(preset="full", size="tiny", T=1024,
+                            sparsities=(8, 32), variants=("mosa",)):
+        trainer = Trainer(TrainConfig(seq_len=1024, global_batch=64,
+                                      microbatch=8, mosa_impl="kernel"),
+                          model_cfg=pt.cfg)
+        trainer.init_state()
+        log(f"  {pt.name}:")
+        out[pt.name] = profile_train(torch, trainer)
+        del trainer
+    return out
+
+
+def cluster_selections(torch, model, tokens):
+    """Each routing layer's cluster members (B, H, rho, k) on ``tokens``."""
+    out = []
+    T = tokens.shape[1]
+    with torch.no_grad():
+        x = model.embed(tokens)
+        for layer in model.layers:
+            sp = layer.mixer.sparse
+            qk = sp._normalized_qk(layer.norm1(x))
+            out.append(sp._cluster_select(qk.float(),
+                                          max(T // sp.sparsity, 2)).cpu())
+            x, _ = layer(x)
+    return out
+
+
+def sweep_cross_check(torch, variant, sparsity):
+    """[25]: the sweep's ``mosa-paper-tiny-{variant}{sparsity}`` at full
+    width on the card and the CPU with the same (seeded) weights: one loss
+    and backward, under ``deterministic_algorithms`` (the heads' outputs
+    are summed by ``index_add_``; routing's clusters overlap).  The
+    selections first (routing's clusters, MoSA's tokens), then the loss
+    within 1e-5 relative and every grad within 1e-4 of its tensor's max
+    |grad| (the centroids get none).  The baselines at batch 1 x 256; mosa8
+    on the kernel path at 1 x 1024, so that k = 128 takes [24]'s route
+    (the streaming #2, the split #3 and #4: one launch each per layer,
+    counted exactly, beside one #1 per layer from the selections' no-grad
+    walk)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.nn.transformer import TransformerLM
+    cfg = get_config("mosa-paper", preset="full", size="tiny",
+                     variant=variant, sparsity=sparsity)
+    selections, T, want = {"routing": cluster_selections,
+                           "mosa": layer_selections}.get(variant), 256, None
+    if variant == "mosa":
+        cfg = dataclasses.replace(cfg, mosa=dataclasses.replace(
+            cfg.mosa, impl="kernel"))
+        T = 1024
+        want = want_launches(**dict.fromkeys(
+            ("mosa_attention", "mosa_attention_fwd_res",
+             "mosa_attention_bwd_dq", "mosa_attention_bwd_dkv"),
+            cfg.n_layers))
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        gpu = TransformerLM(cfg, device=dev)
+        gpu.init(torch.Generator(device=dev).manual_seed(0))
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    with deterministic_algorithms(torch):
+        res = model_cross_check(torch, gpu, cfg, selections, seq_len=T)
+    launches = {name: c.count for name, c in counters.items()}
+    if want is not None and launches != want:
+        raise AssertionError(f"{variant}{sparsity} cross check: launch "
+                             f"counts {launches} != {want}")
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    del gpu
+    return res
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -2448,7 +2764,9 @@ def main():
     sched["kernel_cases"] = {name: times[name] for name in (
         "paged_prefill_attention",
         f"paged_prefill_attention[{PREFILL_FULL_CHUNK}]",
-        f"paged_attention_decode[{DECODE_MIX}]")}
+        f"paged_attention_decode[{DECODE_MIX}]",
+        f"paged_attention_decode[{PAD_CASE}]",
+        f"paged_prefill_attention[{PAD_CASE}]")}
 
     block = {}
     log("[14] main path: block-choice paged serving at full width")
@@ -2497,6 +2815,25 @@ def main():
     window["kernel_cases"] = {name: times[name] for name in (
         "flash_attention[causal 8x9x1024]", "flash_attention_varlen[W 0]")}
 
+    log(f"[24] main path: the IsoFLOP sweep at full width ({SWEEP_STEPS} "
+        "steps per point)")
+    sweep = isoflop_slice(torch)
+
+    log("[24b] one microbatch of mosa8 and of mosa32, profiled")
+    sweep["microbatch"] = profile_sweep_mosa(torch)
+
+    log("[25] card vs CPU for the sweep at full width (fixed32, routing32, "
+        "mosa8)")
+    sweep["cross_check"] = {f"{v}{s}": sweep_cross_check(torch, v, s)
+                            for v, s in (("fixed", 32), ("routing", 32),
+                                         ("mosa", 8))}
+    sweep["kernel_cases"] = {
+        name: {**times[name], "max_abs_err": errs[name]}
+        for name in (f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]",
+                     "mosa_attention_bwd_dq", "mosa_attention_bwd_dkv",
+                     "mosa_attention_bwd_dq[S 32]",
+                     "mosa_attention_bwd_dkv[S 32]")}
+
     sources = {
         "mosa_attention": ("src/repro_torch/csrc/mosa_attention.cu",
                            "src/repro/kernels/mosa_attention.py:55"),
@@ -2535,14 +2872,15 @@ def main():
     }
     # launches: serving's kernels from [5], training's from [8], packed
     # prefill's from [11], block choice's from [14] and [16], the flash
-    # kernels' from [20] and [23c]
+    # kernels' from [20] and [23c], the split #3 and #4 from [24]
     launches = {name: (res["launches"][name]
                        or train["launches_total"][name]
                        or sched["launches"][name]
                        or block["serve"]["launches"][name]
                        or block["train"]["launches_total"][name]
                        or window["contiguous"]["launches"][name]
-                       or window["varlen_entry"]["launches"][name])
+                       or window["varlen_entry"]["launches"][name]
+                       or sweep["launches_total"][name])
                 for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
@@ -2562,6 +2900,7 @@ def main():
     print(json.dumps({"sched": sched}))
     print(json.dumps({"block": block}))
     print(json.dumps({"window": window}))
+    print(json.dumps({"sweep": sweep}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

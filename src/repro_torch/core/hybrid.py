@@ -1,5 +1,11 @@
 """Hybrid attention layer: a few dense (or sliding-window local) heads +
-many MoSA heads (port of ``repro.core.hybrid`` for ``variant="mosa"``).
+many sparse heads (port of ``repro.core.hybrid``).  ``variant`` picks the
+sparse side: the paper's MoSA, or its two baselines for the IsoFLOP
+comparisons, ``"fixed"`` (``FixedSparseAttention``, ``n_mosa_heads``
+heads) and ``"routing"`` (``RoutingAttention``, ``max(1, n_mosa_heads //
+sparsity)`` heads: one routing head costs about rho MoSA heads).  The
+baselines are train-only: the serving entry points raise for them, as the
+JAX package asserts.
 
 Each side carries its own output projection (eq. 2/3 of the paper) and
 the two outputs are added — except for block choice beside window dense
@@ -10,8 +16,7 @@ tokens or, with ``selection_granularity="block"``, KV blocks (its serving
 cache is then ``MoSABlockKVCache``); the dense side's serving cache is a
 window ring (``WindowKVCache`` / ``PagedWindowKVCache``) when
 ``local_window > 0``.  ``dense_impl`` picks the dense side's full-forward
-attention (``"chunked"`` or ``"kernel"``, the flash kernel #9).  The
-fixed / routing baselines are not ported yet.
+attention (``"chunked"`` or ``"kernel"``, the flash kernel #9).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import AttentionConfig, MoSAConfig
 from repro_torch.core.attention import MultiHeadAttention
+from repro_torch.core.baselines import FixedSparseAttention, RoutingAttention
 from repro_torch.core.kv_cache import (DenseKVCache, MoSABlockKVCache,
                                       MoSAKVCache, WindowKVCache)
 from repro_torch.core.mosa import MoSAAttention
@@ -36,12 +42,24 @@ class HybridAttention(nn.Module):
                  variant: str = "mosa", impl: str = "einsum",
                  dense_impl: str = "chunked", device=None):
         super().__init__()
-        if variant != "mosa":
-            raise NotImplementedError(f"hybrid variant {variant!r} is not ported")
-        self.d_model, self.cfg = d_model, cfg
-        self.sparse = MoSAAttention(d_model, cfg, rope_theta, rotary_frac,
-                                    param_dtype, compute_dtype, impl=impl,
-                                    device=device)
+        self.d_model, self.cfg, self.variant = d_model, cfg, variant
+        if variant == "mosa":
+            self.sparse = MoSAAttention(d_model, cfg, rope_theta, rotary_frac,
+                                        param_dtype, compute_dtype, impl=impl,
+                                        device=device)
+        elif variant == "fixed":
+            self.sparse = FixedSparseAttention(
+                d_model, cfg.n_mosa_heads, cfg.d_head, cfg.sparsity,
+                rope_theta, rotary_frac, param_dtype, compute_dtype,
+                device=device)
+        elif variant == "routing":
+            self.sparse = RoutingAttention(
+                d_model, max(1, cfg.n_mosa_heads // cfg.sparsity), cfg.d_head,
+                cfg.sparsity, rope_theta, rotary_frac,
+                param_dtype=param_dtype, compute_dtype=compute_dtype,
+                device=device)
+        else:
+            raise ValueError(f"unknown hybrid variant {variant!r}")
         if cfg.n_dense_heads > 0:
             acfg = AttentionConfig(
                 kind="gqa", n_heads=cfg.n_dense_heads,
@@ -73,8 +91,8 @@ class HybridAttention(nn.Module):
         instead of summing them; token choice and windowless configs keep
         the paper's plain head sum."""
         c = self.cfg
-        return (c.selection_granularity == "block" and c.local_window > 0
-                and c.n_dense_heads > 0)
+        return (self.variant == "mosa" and c.selection_granularity == "block"
+                and c.local_window > 0 and c.n_dense_heads > 0)
 
     def init(self, generator: torch.Generator):
         self.sparse.init(generator)
@@ -105,8 +123,17 @@ class HybridAttention(nn.Module):
         return self._combine(x, y, yd)
 
     def router_health(self, x):
-        """Expert-choice health of the sparse side (train telemetry)."""
+        """Expert-choice health of the sparse side (train telemetry); None
+        for the fixed / routing baselines, which have no learned router."""
+        if self.variant != "mosa":
+            return None
         return self.sparse.router_health(x)
+
+    def _serving(self):
+        if self.variant != "mosa":
+            raise NotImplementedError(
+                f"serving is implemented for MoSA; the {self.variant!r} "
+                "baseline is train-only, as in the JAX package")
 
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -114,6 +141,7 @@ class HybridAttention(nn.Module):
         """``paged``: the dense side then uses a block-paged pool.  The MoSA
         cache stays unpaged: it is already O(k) per head (block choice:
         ``ceil(k / bs)`` candidate blocks and the current one)."""
+        self._serving()
         c = self.cfg
         k = min(self._sparse_k(max_len), max_len)
         if c.selection_granularity == "block":
@@ -148,6 +176,7 @@ class HybridAttention(nn.Module):
         return caches
 
     def prefill(self, x, caches, positions=None, valid=None):
+        self._serving()
         y, sc = self.sparse.prefill(x, caches["sparse"], positions, valid)
         out = dict(caches, sparse=sc)
         yd = None
@@ -160,6 +189,7 @@ class HybridAttention(nn.Module):
         """Packed chunked prefill: the sparse side runs per-segment union
         selection (``MoSAAttention.prefill_packed``), the dense side its
         paged packed path."""
+        self._serving()
         y, sc = self.sparse.prefill_packed(x, caches["sparse"], meta)
         out = dict(caches, sparse=sc)
         yd = None
@@ -169,6 +199,7 @@ class HybridAttention(nn.Module):
         return self._combine(x, y, yd), out
 
     def decode_step(self, x, caches, positions=None):
+        self._serving()
         y, sc = self.sparse.decode_step(x, caches["sparse"], positions)
         out = dict(caches, sparse=sc)
         yd = None

@@ -101,6 +101,7 @@ class MoSAAttention(nn.Module):
         if impl not in ("einsum", "kernel"):
             raise ValueError(f"unknown MoSA impl {impl!r}")
         self.d_model, self.cfg = d_model, cfg
+        self.n_heads = cfg.n_mosa_heads
         self.rope_theta, self.rotary_frac = rope_theta, rotary_frac
         self.compute_dtype = compute_dtype
         self.impl = impl

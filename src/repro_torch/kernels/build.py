@@ -35,6 +35,8 @@ NVCC_FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LIB_NAME = "librepro_torch_kernels.so"
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head dim any kernel takes
+MAX_HEAD_DIM = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -174,6 +176,15 @@ def launch(entry: str, counter: LaunchCounter, *args):
         rc = getattr(lib, entry)(*ptrs, stream)
     check_launch(rc, counter.name)
     counter.count += 1
+
+
+def check_head_dim(d: int):
+    """Raise unless 1 <= d <= ``MAX_HEAD_DIM``: every kernel's wrapper
+    calls this first, on any device.  Wider heads (192, 256) are ROADMAP
+    A.9."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernels take 1 <= d <= "
+                         f"{MAX_HEAD_DIM}; wider heads are ROADMAP A.9")
 
 
 def check_tensor(name, t, shape, dtype, device):

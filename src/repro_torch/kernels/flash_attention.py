@@ -32,10 +32,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_tensor, launch)
+                                      check_head_dim, check_tensor, launch)
 
 NEG_INF = -1e30
-MAX_D = 128
 LAUNCHES = LaunchCounter("flash_attention")
 LAUNCHES_VARLEN = LaunchCounter("flash_attention_varlen")
 
@@ -119,13 +118,11 @@ def flash_attention_varlen_ref(q, k, v, cu_seqlens, scale=None,
 
 
 def _check_common(name, q, k, v, q_shape, kv_shape):
+    check_head_dim(q_shape[-1])
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    d = q_shape[-1]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"need 1 <= d <= {MAX_D}, got d={d}")
     dev = q.device
     check_tensor("q", q, q_shape, q.dtype, dev)
     check_tensor("k", k, kv_shape, q.dtype, dev)

@@ -27,11 +27,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
+from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
+                                      LaunchCounter, check_head_dim,
                                       check_tensor, launch)
 
 NEG_INF = -1e30
-MAX_D = 128
 ROW_MAX_S = 64
 LAUNCHES = LaunchCounter("mosa_attention")
 LAUNCHES_FWD_RES = LaunchCounter("mosa_attention_fwd_res")
@@ -41,7 +41,7 @@ def row_fits(S, d):
     """Whether a row of S selected tokens of width d fits one thread block:
     the route of the one-row forward (#1, #2 and their block forms #5,
     #6) and of the fused backward (``kernels.mosa_backward``)."""
-    return 1 <= S <= ROW_MAX_S and 1 <= d <= MAX_D
+    return 1 <= S <= ROW_MAX_S and 1 <= d <= MAX_HEAD_DIM
 
 
 def wide(t):
@@ -97,6 +97,7 @@ def mosa_attention_fwd_res_ref(q, k, v, idx, scale=None, seg=None):
 
 def check_mosa_inputs(name, q, k, v, idx, seg):
     """Validate the shared inputs of the MoSA kernels; returns (B, H, S, d)."""
+    check_head_dim(q.shape[-1])
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dim() != 4:
@@ -104,8 +105,8 @@ def check_mosa_inputs(name, q, k, v, idx, seg):
     B, H, S, d = q.shape
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    if not (1 <= d <= MAX_D) or S < 1:
-        raise ValueError(f"need 1 <= d <= {MAX_D} and S >= 1, got d={d}, S={S}")
+    if S < 1:
+        raise ValueError(f"need S >= 1, got S={S}")
     dev = q.device
     check_tensor("q", q, (B, H, S, d), q.dtype, dev)
     check_tensor("k", k, (B, H, S, d), q.dtype, dev)
@@ -123,7 +124,7 @@ def _forward_cuda(route, q, k, v, idx, r, scale, seg):
     B, H, S, d = check_mosa_inputs(f"{name}_{route}_cuda", q, k, v, idx, seg)
     if route == "row" and not row_fits(S, d):
         raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
-                         f"d <= {MAX_D}, got S={S}, d={d}")
+                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
     entry = f"repro_{name}" + ("_row" if route == "row" else "")
     scale = float(scale if scale is not None else d ** -0.5)
     if r is not None:

@@ -35,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_tensor, launch)
-from repro_torch.kernels.mosa_attention import (MAX_D, ROW_MAX_S,
+from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
+                                      LaunchCounter, check_tensor, launch)
+from repro_torch.kernels.mosa_attention import (ROW_MAX_S,
                                                 check_mosa_inputs, pair_mask,
                                                 row_fits, wide)
 
@@ -116,7 +116,7 @@ def mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                             seg, gt, lse, delta)
     if not fused_bwd_fits(S, d):
         raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
-                         f"d <= {MAX_D}, got S={S}, d={d}")
+                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
     scale = float(scale if scale is not None else d ** -0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     launch("repro_mosa_attention_bwd", LAUNCHES, q, k, v, idx, seg, gt, lse,

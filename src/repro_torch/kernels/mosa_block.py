@@ -45,9 +45,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
+from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
+                                      LaunchCounter, check_head_dim,
                                       check_tensor, launch)
-from repro_torch.kernels.mosa_attention import (MAX_D, ROW_MAX_S, fits_one_row,
+from repro_torch.kernels.mosa_attention import (ROW_MAX_S, fits_one_row,
                                                 pair_mask, row_fits,
                                                 softmax_parts, wide)
 from repro_torch.kernels.mosa_backward import (FUSED_MAX_S, bwd_from_mask,
@@ -124,6 +125,7 @@ def mosa_block_attention_bwd_ref(q, k, v, bidx, gt, lse, delta, bs: int,
 def _check_block_inputs(name, q, k, v, bidx, seg, bs, T):
     """Validate the shared inputs of the block kernels; returns
     (B, H, S, d, NB)."""
+    check_head_dim(q.shape[-1])
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dim() != 4:
@@ -131,8 +133,8 @@ def _check_block_inputs(name, q, k, v, bidx, seg, bs, T):
     B, H, S, d = q.shape
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    if not (1 <= d <= MAX_D) or S < 1:
-        raise ValueError(f"need 1 <= d <= {MAX_D} and S >= 1, got d={d}, S={S}")
+    if S < 1:
+        raise ValueError(f"need S >= 1, got S={S}")
     if bs < 1 or S % bs or T < 1:
         raise ValueError(f"need S = NB * bs and T >= 1, got S={S}, bs={bs}, "
                          f"T={T}")
@@ -156,7 +158,7 @@ def _forward_cuda(route, q, k, v, bidx, rblk, bs, T, scale, seg):
                                          bidx, seg, bs, T)
     if route == "row" and not row_fits(S, d):
         raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
-                         f"d <= {MAX_D}, got S={S}, d={d}")
+                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
     entry = f"repro_{name}" + ("_row" if route == "row" else "")
     scale = float(scale if scale is not None else d ** -0.5)
     if rblk is not None:
@@ -269,7 +271,7 @@ def mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse, delta,
                           bidx, seg, gt, lse, delta, bs, T)
     if not fused_bwd_fits(S, d):
         raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
-                         f"d <= {MAX_D}, got S={S}, d={d}")
+                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     launch("repro_mosa_block_attention_bwd", LAUNCHES_BWD, q, k, v, bidx,
             seg, gt, lse, delta, dq, dk, dv, BH, S, d, bs, T,

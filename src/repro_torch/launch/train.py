@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --preset smoke \\
       --variant mosa --device cpu --steps 4
 
+  # the paper's IsoFLOP sweep (dense vs MoSA at one matched budget):
+  PYTHONPATH=src python -m repro_torch.launch.train --isoflop \\
+      --preset smoke --device cpu --steps 2 --batch 2 --seq 64
+
 Runs on the card unless ``--device`` names another device, and raises
 without CUDA.  The flags are ``repro.launch.train``'s, without
 ``--rule-set`` (no mesh yet) and with ``--device``; ``--mosa-impl kernel``
 takes the hand-written MoSA kernels (their plain versions on the CPU).
-``--isoflop`` raises until ``train/isoflop.py`` is ported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ def main(argv=None):
     p.add_argument("--arch", default="mosa-paper")
     p.add_argument("--preset", default="smoke")
     p.add_argument("--variant", default=None,
-                   help="mosa-paper variant: dense|mosa|pure")
+                   help="mosa-paper variant: dense|mosa|fixed|routing|pure")
     p.add_argument("--sparsity", type=int, default=None)
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch", type=int, default=8)
@@ -45,7 +48,13 @@ def main(argv=None):
                    help="kernel = the hand-written MoSA kernels (forward "
                         "with residuals + backward)")
     p.add_argument("--isoflop", action="store_true",
-                   help="the FLOP-matched dense-vs-MoSA sweep (not ported)")
+                   help="run the FLOP-matched dense-vs-MoSA sweep instead "
+                        "of a single config")
+    p.add_argument("--metrics-path", default=None,
+                   help="write an obs metrics snapshot here on exit "
+                        "(.jsonl appends)")
+    p.add_argument("--trace-path", default=None,
+                   help="write a Chrome-trace JSON of the run here on exit")
     p.add_argument("--no-health-in-step", action="store_true",
                    help="router health via a standalone forward at log time")
     p.add_argument("--device", default=None,
@@ -54,8 +63,22 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.isoflop:
-        raise NotImplementedError("--isoflop needs train/isoflop.py, which "
-                                  "is not ported yet (ROADMAP A)")
+        from repro_torch.train.isoflop import isoflop_sweep, run_isoflop
+        points = isoflop_sweep(
+            preset=args.preset, T=args.seq,
+            sparsities=(args.sparsity,) if args.sparsity else (8,))
+        results = run_isoflop(
+            points, steps=args.steps, seq_len=args.seq,
+            global_batch=args.batch, ckpt_root=args.ckpt_dir,
+            train_kw={"lr": args.lr, "warmup": args.warmup,
+                      "log_every": args.log_every,
+                      "microbatch": args.microbatch,
+                      "compute": args.compute, "remat": args.remat,
+                      "mosa_impl": args.mosa_impl, "device": args.device,
+                      "metrics_path": args.metrics_path,
+                      "trace_path": args.trace_path})
+        print(json.dumps(results, indent=2, default=float))
+        return
     akw = {}
     if args.variant is not None:
         akw["variant"] = args.variant
@@ -69,7 +92,8 @@ def main(argv=None):
                       compute=args.compute, remat=args.remat,
                       mosa_impl=args.mosa_impl,
                       health_in_step=not args.no_health_in_step,
-                      device=args.device)
+                      metrics_path=args.metrics_path,
+                      trace_path=args.trace_path, device=args.device)
     trainer = Trainer(cfg)
     _, _, history = trainer.run()
     print(json.dumps({"final": history[-1] if history else None}))

@@ -13,7 +13,8 @@ cross-entropy; packed rows through ``segments``/``positions``).  Remat
 the block's forward runs again in the backward); ``mosa`` and
 ``dots_saveable`` are not ported yet.
 
-Ported mixers: ``mosa`` (the hybrid), ``attn`` and ``attn_local`` (as
+Ported mixers: ``mosa`` (the hybrid; MoSA or, train-only, the fixed /
+routing baselines on its sparse side), ``attn`` and ``attn_local`` (as
 the JAX package builds them: ``attn`` drops a configured window,
 ``attn_local`` defaults it to 1024); FFN: ``dense``.  A window attention
 layer serves from a window ring (``WindowKVCache``, or
@@ -220,6 +221,13 @@ class TransformerLM(nn.Module):
             f"remat {policy!r} is not ported yet (ROADMAP A: remat "
             "mosa/dots_saveable); use 'none' or 'full'")
 
+    def gradient_free(self) -> set:
+        """Names of the parameters that the loss never reaches (each
+        module's ``GRADIENT_FREE``: the routing baseline's centroids)."""
+        return {f"{name}.{p}" if name else p
+                for name, mod in self.named_modules()
+                for p in getattr(mod, "GRADIENT_FREE", ())}
+
     def backbone(self, x, positions=None, segments=None,
                  collect_health: bool = False):
         """(B, T, h) -> (hidden states, aux loss).  With
@@ -232,9 +240,10 @@ class TransformerLM(nn.Module):
             if collect_health and layer.spec.mixer == "mosa":
                 with torch.no_grad():
                     s = layer.mixer.router_health(layer.norm1(x))
-                totals = {k: totals.get(k, 0.0) + s[k]
-                          for k in self.HEALTH_KEYS}
-                n_routed += 1
+                if s is not None:       # None: a baseline, no router
+                    totals = {k: totals.get(k, 0.0) + s[k]
+                              for k in self.HEALTH_KEYS}
+                    n_routed += 1
             x, a = self._maybe_remat(layer)(x, positions, segments)
             aux = aux + a
         if not collect_health:

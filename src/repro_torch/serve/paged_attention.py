@@ -16,6 +16,11 @@ Decode replaces the TPU kernel ``_paged_kernel`` of
   * ``paged_attention_decode`` — the dispatcher: a CUDA tensor goes to the
     kernel, a CPU tensor to the plain version.  There is no other route.
 
+Both kernels are built for head dims 32, 64 and 128 (``HEAD_DIMS``); their
+wrappers take any 1 <= d <= 128 by zero-padding q and the pools to the next
+of these widths and slicing the output back (``_run_padded``, as the JAX
+wrappers' ``_pad_lane``), and raise for d > 128 (ROADMAP A.9).
+
 Packed prefill replaces ``_paged_prefill_kernel``: a chunk of N segments
 flattened back to back (``cu_seqlens``), segment n continuing batch row
 ``rows[n]`` after ``past_lens[n]`` cached tokens.
@@ -35,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_tensor, launch)
+                                      check_head_dim, check_tensor, launch)
 from repro_torch.serve.paged_kv import PagedDenseKVCache
 
 NEG_INF = -1e30
@@ -146,6 +151,31 @@ def decode_grid(B: int, Hq: int, Hkv: int, d: int, nb: int, bs: int,
     return (DECODE_CLUSTER * B * Hkv,), (DECODE_CLUSTER,), smem, window
 
 
+def padded_head_dim(d: int) -> int:
+    """The width the paged kernels run a head dim ``d`` at: the smallest
+    of ``HEAD_DIMS`` that is >= d.  Raises for d > 128 (ROADMAP A.9)."""
+    check_head_dim(d)
+    return next(w for w in HEAD_DIMS if w >= d)
+
+
+def _run_padded(kernel, q, k_pool, v_pool, *args):
+    """``kernel`` on q and both pools zero-padded on the last axis to
+    ``padded_head_dim(d)``, its output sliced back to d, as the JAX
+    wrappers' ``_pad_lane`` does.  Zero columns change no score and add
+    only zero output columns, in fp32 and bf16 alike; the caller's scale
+    (computed on the true d) is passed through.  At d in ``HEAD_DIMS`` the
+    tensors go to the kernel as they are, with no copy; otherwise each
+    call copies q and both whole pools (ROADMAP A.9 has the kernel-side
+    alternative)."""
+    d = q.shape[-1]
+    w = padded_head_dim(d)
+    if w == d:
+        return kernel(q, k_pool, v_pool, *args)
+    q, k_pool, v_pool = (torch.nn.functional.pad(t, (0, w - d))
+                         for t in (q, k_pool, v_pool))
+    return kernel(q, k_pool, v_pool, *args)[..., :d]
+
+
 def _check_geometry(q, k_pool):
     """Head dim, dtype and GQA group the paged kernels take."""
     d, Hq, Hkv = q.shape[-1], q.shape[-2], k_pool.shape[2]
@@ -166,8 +196,16 @@ def _check_aligned(**tensors):
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, scale):
     """The CUDA kernel.  q: (B, Hq, d); pools (N, bs, Hkv, d), contiguous
-    fp32 or bf16 with d in (32, 64, 128) and Hq / Hkv <= 8; block_table
-    (B, nb) int32; lengths (B,) int32.  Raises on anything else."""
+    fp32 or bf16 with 1 <= d <= 128 and Hq / Hkv <= 8; block_table (B, nb)
+    int32; lengths (B,) int32.  Raises on anything else.  A d outside
+    ``HEAD_DIMS`` runs zero-padded (``_run_padded``: a copy of q and both
+    pools per call); one launch either way."""
+    return _run_padded(_decode_kernel, q, k_pool, v_pool, block_table,
+                       lengths, scale)
+
+
+def _decode_kernel(q, k_pool, v_pool, block_table, lengths, scale):
+    """One launch of the decode kernel at d in ``HEAD_DIMS``."""
     if not q.is_cuda:
         raise ValueError("paged_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 4:
@@ -274,10 +312,18 @@ def prefill_grid(total: int, N: int, Hq: int, Hkv: int, d: int, nb: int,
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
                                  row_of_seg, past_lens, scale):
     """The CUDA kernel.  q: (total, Hq, d) packed; pools (P, bs, Hkv, d),
-    contiguous fp32 or bf16 with d in (32, 64, 128) and Hq / Hkv <= 8;
+    contiguous fp32 or bf16 with 1 <= d <= 128 and Hq / Hkv <= 8;
     block_table (B, nb), cu_seqlens (N + 1,), row_of_seg and past_lens
     (N,), all int32.  Raises on anything else.  Padding tokens and
-    inactive segments come back as exact zeros (the kernel writes them)."""
+    inactive segments come back as exact zeros (the kernel writes them).
+    A d outside ``HEAD_DIMS`` runs zero-padded, as for decode."""
+    return _run_padded(_prefill_kernel, q, k_pool, v_pool, block_table,
+                       cu_seqlens, row_of_seg, past_lens, scale)
+
+
+def _prefill_kernel(q, k_pool, v_pool, block_table, cu_seqlens, row_of_seg,
+                    past_lens, scale):
+    """The split and merge launches (one count) at d in ``HEAD_DIMS``."""
     if not q.is_cuda:
         raise ValueError("paged_prefill_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 4:

@@ -3,7 +3,7 @@
 data pipeline -> model and AdamW state on one device -> train step
 (microbatch accumulation, mixed precision, remat; ``train.step``) ->
 checkpoint / restart -> preemption (SIGTERM -> checkpoint at the next step
-boundary) -> router health in the step.
+boundary) -> router health in the step -> telemetry through ``obs``.
 
 Resumability: a run killed at a step boundary and restarted from its
 checkpoint replays the same loss curve bit for bit as an uninterrupted run
@@ -13,22 +13,28 @@ checkpoint, and the step counter rides in the manifest.  Checkpoints use
 the JAX package's layout and keys (``convert.train_state_to_jax``), so
 either package resumes the other's run.
 
+Telemetry, as the JAX Trainer's: each step runs inside the
+``train.step_time_s`` registry timer and a ``train_step`` span (track
+``train``), whose scope holds the step's one host sync, so on the card
+the measured time is the step's device work; ``_publish`` sets the
+``train.*`` gauges and the ``train.router.*`` histograms, and
+``obs.dump(metrics_path, trace_path, tag="trainer")`` writes the files
+when ``run`` exits.
+
 The trainer runs on the card unless ``TrainConfig.device`` says otherwise,
 and raises without CUDA.  Left out for now (ROADMAP A): the mesh and
-sharding rule sets, heartbeats and the straggler monitor, and the ``obs``
-metrics/trace files (``metrics_path``/``trace_path`` raise).
+sharding rule sets, heartbeats and the straggler monitor.
 ``repro_torch.launch.train`` is the CLI face of this module.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.data.pipeline import (PackedLMDataset, Prefetcher,
@@ -64,8 +70,8 @@ class TrainConfig:
     mosa_impl: Optional[str] = None      # einsum | kernel
     router_health: bool = True           # log router telemetry
     health_in_step: bool = True          # health as train-step metrics
-    metrics_path: Optional[str] = None   # not ported yet (raises)
-    trace_path: Optional[str] = None     # not ported yet (raises)
+    metrics_path: Optional[str] = None   # obs snapshot on run() exit
+    trace_path: Optional[str] = None     # Chrome-trace JSON on run() exit
     device: Optional[str] = None         # None = the card; "cpu" on request
 
 
@@ -84,9 +90,6 @@ def _apply_overrides(model_cfg: ModelConfig, cfg: TrainConfig) -> ModelConfig:
 class Trainer:
     def __init__(self, cfg: TrainConfig,
                  model_cfg: Optional[ModelConfig] = None):
-        if cfg.metrics_path or cfg.trace_path:
-            raise NotImplementedError("metrics_path/trace_path need the obs "
-                                      "copy (ROADMAP A), not ported yet")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model_cfg = _apply_overrides(
@@ -147,6 +150,25 @@ class Trainer:
         return {k: float(v)
                 for k, v in self.model.router_health(batch["tokens"]).items()}
 
+    def _publish(self, i: int, dt: float, metrics: dict) -> None:
+        """Step telemetry through the obs registry, from the same
+        already-synced floats as the history and the log line (no extra
+        transfer).  ``train.step_time_s`` is observed by the step's timer
+        scope, not here."""
+        reg = obs.registry()
+        if not reg.enabled:
+            return
+        reg.set("train.step", i)
+        reg.set("train.tokens_per_s",
+                metrics.get("tokens", 0.0) / max(dt, 1e-9))
+        for k in ("loss", "ce", "ppl", "aux", "grad_norm"):
+            if k in metrics:
+                reg.set(f"train.{k}", metrics[k])
+        for k in ("sel_entropy", "drop_rate", "head_util"):
+            if k in metrics:
+                reg.observe(f"train.router.{k}", metrics[k],
+                            bounds=obs.UNIT_BOUNDS)
+
     def device_batch(self, batch):
         """A numpy batch as int64 tensors on the trainer's device."""
         return {k: torch.as_tensor(v).to(self.device, torch.long)
@@ -167,16 +189,20 @@ class Trainer:
             for i in range(start, steps):
                 _, batch = prefetch.next()
                 batch = self.device_batch(batch)
-                t0 = time.perf_counter()
-                params, opt_state, step, metrics = self.train_step(
-                    params, opt_state, step, batch)
-                # the one host sync of the step
-                metrics = {k: float(v) for k, v in metrics.items()}
-                dt = time.perf_counter() - t0
+                with obs.registry().timer("train.step_time_s") as tm, \
+                        obs.tracer().span("train_step", track="train",
+                                          step=i):
+                    params, opt_state, step, metrics = self.train_step(
+                        params, opt_state, step, batch)
+                    # the one host sync of the step, inside the timed scope
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                dt = tm.dt
                 if i % cfg.log_every == 0 or i == steps - 1:
                     if cfg.router_health and not self._health_in_step:
                         metrics.update(self.router_health(batch))
                     history.append({"step": i, "dt": dt, **metrics})
+                self._publish(i, dt, metrics)
+                if i % cfg.log_every == 0 or i == steps - 1:
                     health = (f" ent {metrics['sel_entropy']:.2f} "
                               f"drop {metrics['drop_rate']:.2f}"
                               if "sel_entropy" in metrics else "")
@@ -202,4 +228,5 @@ class Trainer:
                 checkpointer.wait()
             if self.preempt:
                 self.preempt.restore()
+            obs.dump(cfg.metrics_path, cfg.trace_path, tag="trainer")
         return params, opt_state, history

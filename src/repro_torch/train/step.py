@@ -15,6 +15,12 @@ nothing), so the mean of means is the full-batch mean.  Metrics are the
 mean over microbatches, except ``tokens`` (summed) and ``ppl`` (exp of the
 mean ce).
 
+A parameter that the model names in ``gradient_free()`` (the routing
+baseline's k-means centroids, which the loss sees only through top-k
+indices) gets a zero gradient, as in JAX: the clip and AdamW see zeros and
+leave it where it is.  Any other parameter that the loss does not reach
+makes the step raise.
+
 Mixed precision: ``mixed_precision(cfg)`` keeps fp32 parameters (the
 master weights) and sets bf16 compute; gradients and the AdamW moments stay
 fp32.  Remat lives on ``ModelConfig.remat`` (``with_remat``).
@@ -56,12 +62,21 @@ def make_train_step(model, optimizer, *, microbatches: int = 1,
     loss ``with_health``: the router-health stats ride the step's metrics,
     with no second forward."""
 
+    free = model.gradient_free()
+
     def grads_of(params, batch):
         keys = list(params)
         g_acc, l_acc, m_acc = None, 0.0, {}
         for mb in microbatch_split(batch, microbatches):
             loss, metrics = model.loss(mb, with_health=health)
-            grads = torch.autograd.grad(loss, [params[k] for k in keys])
+            grads = torch.autograd.grad(loss, [params[k] for k in keys],
+                                        allow_unused=True)
+            unreached = [k for k, g in zip(keys, grads)
+                         if g is None and k not in free]
+            if unreached:
+                raise RuntimeError(f"the loss does not reach {unreached}")
+            grads = [torch.zeros_like(params[k]) if g is None else g
+                     for k, g in zip(keys, grads)]
             if microbatches == 1:
                 return (dict(zip(keys, grads)), loss.detach(),
                         {k: v.detach() for k, v in metrics.items()})

@@ -37,7 +37,9 @@ the CPU with identical greedy tokens.  Paged decode (#11) is held at the
 serving slice, at the Scheduler mix with a row of length 0 (exact zeros),
 at span boundaries of its 8-block cluster, at a row whose scores take two
 windows and at a table read from device memory; two launches bitwise
-equal, one count per call.
+equal, one count per call.  Paged decode and packed prefill also at head
+dims 16, 24, 48 and 96, which their wrappers zero-pad to the kernels'
+widths (one count per call all the same).
 """
 
 import pytest
@@ -102,6 +104,11 @@ PAGED_DECODE_CASES = {
     "span boundaries": (8, 2, 64, 16, 72, [1023, 1024, 1025, 127, 128, 129]),
     "two windows, R 8": (8, 1, 32, 16, 1100, [17593, 5]),
     "table from device memory": (2, 1, 32, 2, 4200, [8399, 0, 9]),
+    # head dims outside (32, 64, 128): zero-padded to the next of them
+    "4/4 d16 bs16, padded to 32": (4, 4, 16, 16, 6, [1, 96, 19]),
+    "8/2 d24 bs8, padded to 32": (8, 2, 24, 8, 6, [1, 48, 11]),
+    "4/4 d48 bs16, padded to 64": (4, 4, 48, 16, 6, [1, 96, 19]),
+    "16/2 d96 bs8, padded to 128": (16, 2, 96, 8, 6, [1, 48, 11]),
 }
 
 
@@ -388,6 +395,11 @@ PREFILL_CASES = [
                          (3, 639, 1)], 48, 10),
     (6, 2, 32, 4, 70, [(0, 120, 13), (1, 0, 30), (2, 250, 20)], 64, 0),
     (4, 4, 64, 16, 72, [(0, 768, 256)], 256, 0),
+    # head dims outside (32, 64, 128): zero-padded to the next of them
+    (4, 4, 16, 4, 6, _EDGE, 24, 0),
+    (8, 2, 24, 4, 6, _EDGE, 24, 0),
+    (4, 4, 48, 16, 40, [(0, 0, 64), (1, 256, 64)], 128, 0),
+    (8, 2, 96, 8, 5, [(0, 0, 33), (1, 8, 7)], 48, 1),
 ]
 
 

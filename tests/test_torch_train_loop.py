@@ -8,7 +8,8 @@
   * the ``Trainer`` (device "cpu", ``--mosa-impl kernel``) killed by a real
     SIGTERM resumes from its checkpoint and replays the loss curve of an
     uninterrupted run bit for bit;
-  * the trainer and ``launch.train`` refuse to fall back to the CPU.
+  * the trainer and ``launch.train`` refuse to fall back to the CPU, and
+    train on it when asked (``--isoflop`` included).
 """
 
 import dataclasses
@@ -213,5 +214,8 @@ def test_cli_trains_on_the_cpu_when_asked(capsys):
                        "cpu", "--steps", "1", "--batch", "2", "--seq", "32",
                        "--no-health-in-step"])
     assert " ent " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="isoflop"):
-        launch_train.main(["--isoflop", "--device", "cpu"])
+    # the IsoFLOP sweep trains every point (dense, then mosa8)
+    launch_train.main(["--isoflop", "--device", "cpu", "--steps", "1",
+                       "--batch", "2", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert out.count("step ") == 2 and '"mosa-paper-tiny-mosa8-smoke"' in out
