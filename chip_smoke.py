@@ -17,7 +17,9 @@ Phases (any failure raises, so the script exits nonzero):
      bits; two launches of each route bitwise equal), the fused backward
      (dq, dk, dv in one launch, every case with S <= 64, S = 1 and S = 64
      at d 32 and 128 included; two launches bitwise equal) and the split dq
-     and dk/dv kernels (every case), the autograd Function that joins them
+     and dk/dv kernels (every case, S = 128 with positions in no order, -1
+     keys and segments across tiles included: their tile skipping by
+     value), the autograd Function that joins them
      (grads of q, k, v and r against autograd of the plain version; the
      fused route at S <= 64, the split one above, checked by the
      counters), paged decode (the slice, the Scheduler mix with a row of
@@ -54,7 +56,8 @@ Phases (any failure raises, so the script exits nonzero):
      Scheduler mix: 8 rows of 128-1152 positions) and packed prefill at a
      second shape (one 256-token segment at past 768, the Scheduler's full
      chunk), both in the ``sched`` JSON's kernel_cases; paged decode's
-     device time from ``torch.profiler`` too (``device_ms``);
+     and the split #3's and #4's (at [24]'s mosa8 shape) device time from
+     ``torch.profiler`` too (``device_ms``);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
@@ -143,7 +146,9 @@ Phases (any failure raises, so the script exits nonzero):
      Trainer's metrics file and trace (under ``build/isoflop/``)
      hold 6 ``train.step_time_s`` observations and 6 ``train_step`` spans,
      whose median over steps 1-5 gives the step time and tokens/s; the
-     dense and mosa budgets within 5%;
+     dense and mosa budgets within 5%; 24b: one microbatch of mosa8 and
+     of mosa32 under ``torch.profiler``, each MoSA kernel's device time
+     by name;
  25. the card against the CPU for ``fixed32`` and ``routing32`` at full
      width and the same weights, as phase 9 (routing: identical cluster
      selections in every layer first), under deterministic algorithms.
@@ -161,6 +166,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -219,6 +225,28 @@ def device_ms_by_kernel(torch, fn, flush, names, iters=10):
             if name in ev.key:
                 out[name] += ev.device_time_total / 1e3 / iters
     return out
+
+
+def kernel_label(mangled):
+    """A kernel's name and template arguments from its mangled name, e.g.
+    ``mosa_bwd_dq_kernel<float,false,1>`` (ptxas's logs print mangled
+    names): the last <length><name> component of the nested name, then
+    its template arguments."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if not name:
+        return mangled[:60]
+    if not mangled.startswith("I", i):
+        return name
+    args = re.findall(r"f|13__nv_bfloat16|Lb[01]|Li-?\d+",
+                      mangled[i + 1:mangled.find("EE", i)])
+    names = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0": "false",
+             "Lb1": "true"}
+    return f"{name}<" + ",".join(names.get(a, a[2:]) for a in args) + ">"
 
 
 def bf16_tol(want):
@@ -311,15 +339,19 @@ def check_fwd_routes(torch, name, case, routed, row, stream, S, d):
 
 # ----------------------------------------------------------------- inputs
 def mosa_inputs(torch, B, H, S, d, T, dev, gen, neg_keys=0, zero_rows=0,
-                with_seg=False):
+                with_seg=False, unsorted=False):
     """Expert-choice-like inputs: per (b, h) S sorted distinct positions of
-    a length-T sequence, token 0 forced; ``neg_keys`` random slots set to
-    -1, ``zero_rows`` random rows with r = 0."""
+    a length-T sequence, token 0 forced (``unsorted``: the same positions
+    in a random order); ``neg_keys`` random slots set to -1, ``zero_rows``
+    random rows with r = 0."""
     q, k, v = (torch.randn(B, H, S, d, device=dev, generator=gen)
                for _ in range(3))
     perm = torch.rand(B, H, T - 1, device=dev, generator=gen).argsort(-1)
     idx = torch.cat([torch.zeros(B, H, 1, device=dev, dtype=torch.long),
                      perm[..., :S - 1] + 1], -1).sort(-1).values
+    if unsorted:
+        idx = idx.gather(-1, torch.rand(B, H, S, device=dev,
+                                        generator=gen).argsort(-1))
     if neg_keys:
         flat = idx.view(-1)
         flat[torch.randint(0, flat.numel(), (neg_keys,), device=dev,
@@ -372,6 +404,11 @@ MOSA_CASES = {
     # the first S past the one-row kernels (streaming forward, split bwd)
     "S=65 d=128, seg": dict(B=1, H=3, S=65, d=128, T=300, neg_keys=4,
                             zero_rows=3, with_seg=True),
+    # the split backward's tile skipping by value: positions in no order,
+    # -1 keys in the middle, segments across tile boundaries
+    "S=128 unsorted idx, -1 keys, seg": dict(
+        B=2, H=3, S=128, d=64, T=1024, neg_keys=6, zero_rows=3,
+        with_seg=True, unsorted=True),
 }
 
 
@@ -991,14 +1028,14 @@ def time_kernels(torch, dev):
             q, k, v, attn_mask=mask), flush=flush),
         bytes=nbytes, flops=flops)
     out.update(time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush,
-                                  gen))
+                                  gen)[0])
     # [24]'s mosa8 (k = 128): the streaming #2 and the split #3 and #4 at
     # the shape their main path gives them; the split rows' S 32 times
     # (a shape whose route is the fused kernel) stay as "[S 32]"
     q, k, v, idx, r, _ = mosa_inputs(torch, *SWEEP_MOSA8, 1024, dev, gen)
     mask = (idx[..., :, None] >= idx[..., None, :]) & (idx >= 0)[..., None, :]
-    mosa8 = time_train_kernels(torch, q, k, v, idx, r, mask, int(mask.sum()),
-                               flush, gen)
+    mosa8, split_calls = time_train_kernels(torch, q, k, v, idx, r, mask,
+                                            int(mask.sum()), flush, gen)
     for name in ("mosa_attention_bwd_dq", "mosa_attention_bwd_dkv"):
         out[f"{name}[S 32]"] = out[name]
         out[name] = mosa8[name]
@@ -1045,6 +1082,13 @@ def time_kernels(torch, dev):
             torch, call, flush, ("paged_decode_kernel",))["paged_decode_kernel"]
         log(f"  {name}: kernel {out[name]['device_ms']:.4f} ms (device time, "
             "torch.profiler)")
+    # the split #3 and #4 at mosa8, each kernel's own device time
+    for name, kernel in (("mosa_attention_bwd_dq", "mosa_bwd_dq_kernel"),
+                         ("mosa_attention_bwd_dkv", "mosa_bwd_dkv_kernel")):
+        out[name]["device_ms"] = device_ms_by_kernel(
+            torch, split_calls[name], flush, (kernel,))[kernel]
+        log(f"  {name} at {SWEEP_MOSA8_NAME}: kernel "
+            f"{out[name]['device_ms']:.4f} ms (device time, torch.profiler)")
     for name, call in prefill_calls.items():
         parts = device_ms_by_kernel(torch, call, flush,
                                     ("split_kernel", "merge_kernel"))
@@ -1250,7 +1294,9 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     computes all three too: both numbers stand in the fused kernel's row
     and in each of the split #3 and #4 rows (compare those with the sum of
     the two).  Also timed and logged: the Function's backward prologue
-    (g~, dr, delta; ``kernels/mosa_vjp.py``) on its own."""
+    (g~, dr, delta; ``kernels/mosa_vjp.py``) on its own.  Returns the
+    times and the split #3's and #4's calls (for their device times, taken
+    after every event timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels.mosa_attention import (
         mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref,
@@ -1282,6 +1328,13 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     prologue_ms = time_ms(torch, prologue, flush=flush)
     log(f"  the Function's backward prologue (g~, dr, delta) at "
         f"({B},{H},{S},{d}): {prologue_ms:.4f} ms")
+
+    def dq_call():
+        return mosa_attention_bwd_dq_cuda(*bwd_args)
+
+    def dkv_call():
+        return mosa_attention_bwd_dkv_cuda(*bwd_args)
+
     out = {} if not fused_bwd_fits(S, d) else {
         "mosa_attention_bwd": dict(
             ms=time_ms(torch, lambda: mosa_attention_bwd_fused_cuda(
@@ -1303,17 +1356,15 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
                 q, k, v, attn_mask=mask), flush=flush),
             bytes=3 * vec + row + vec + row, flops=4 * pairs * d),
         "mosa_attention_bwd_dq": dict(
-            ms=time_ms(torch, lambda: mosa_attention_bwd_dq_cuda(*bwd_args),
-                       flush=flush),
+            ms=time_ms(torch, dq_call, flush=flush),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
             bytes=4 * vec + 3 * row + vec, flops=6 * pairs * d),
         "mosa_attention_bwd_dkv": dict(
-            ms=time_ms(torch, lambda: mosa_attention_bwd_dkv_cuda(*bwd_args),
-                       flush=flush),
+            ms=time_ms(torch, dkv_call, flush=flush),
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
             bytes=4 * vec + 3 * row + 2 * vec, flops=8 * pairs * d,
             prologue_ms=prologue_ms),
-    }
+    }, {"mosa_attention_bwd_dq": dq_call, "mosa_attention_bwd_dkv": dkv_call}
 
 
 def kernel_counters():
@@ -1718,6 +1769,17 @@ def profile_train(torch, trainer, steps=2):
         e.self_device_time_total for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
         and "mosa_" in e.key) / 1e3 / steps
+    # each MoSA kernel's device time per microbatch, by its short name
+    # (template instances summed)
+    res["mosa_kernels"] = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "mosa_" in e.key):
+            m = re.search(r"\w+_kernel", e.key)
+            name = m.group(0) if m else e.key
+            res["mosa_kernels"][name] = (res["mosa_kernels"].get(name, 0.0)
+                                         + e.self_device_time_total / 1e3
+                                         / steps)
     by_op = {}
     for e in prof.events():
         for kern in getattr(e, "kernels", ()):
@@ -2614,7 +2676,9 @@ def isoflop_slice(torch):
 def profile_sweep_mosa(torch):
     """[24b]: one microbatch (8 x 1024) of the sweep's mosa8 and mosa32
     points under ``torch.profiler``, as [10]: where their steps' device
-    time goes, the MoSA kernels' share included."""
+    time goes, the MoSA kernels' share included, each MoSA kernel by name
+    (mosa8's split backward: ``mosa_bwd_dq_kernel`` and
+    ``mosa_bwd_dkv_kernel``)."""
     from repro_torch.train.isoflop import isoflop_sweep
     from repro_torch.train.loop import TrainConfig, Trainer
     out = {}
@@ -2626,6 +2690,9 @@ def profile_sweep_mosa(torch):
         trainer.init_state()
         log(f"  {pt.name}:")
         out[pt.name] = profile_train(torch, trainer)
+        log("  its MoSA kernels per microbatch (device ms): " + ", ".join(
+            f"{name} {ms:.3f}" for name, ms in sorted(
+                out[pt.name]["mosa_kernels"].items(), key=lambda kv: -kv[1])))
         del trainer
     return out
 
@@ -2715,9 +2782,14 @@ def main():
     log(f"[2] kernels built in {lib.build_seconds:.1f} s -> "
         f"{lib.path.relative_to(ROOT)}")
     for f in sorted(lib.path.parent.glob("*.log")):
+        kernel = ""
         for line in f.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {f.stem}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"    {f.stem} {kernel}: "
+                    f"{line.strip().replace('ptxas info    : ', '')}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

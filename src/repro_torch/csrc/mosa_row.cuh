@@ -2,7 +2,8 @@
 // shared-memory staging that the one-row forward (mosa_attention.cu,
 // `mosa_fwd_row_kernel`: kernels #1, #2, #5 and #6 at S <= 64) and the
 // fused backward (mosa_backward.cu, `mosa_bwd_fused_kernel`: #3 + #4 and
-// #7 + #8 at S <= 64) share.
+// #7 + #8 at S <= 64) share; its copy loop, `stage_rows`, also stages the
+// tiles of the split backward kernels (mosa_backward.cu, S > 64).
 //
 // A row's S selected tokens are staged whole: q, k and v in their dtype at
 // a padded row stride of d + 16 bytes' worth of elements (16-byte aligned
@@ -95,10 +96,50 @@ struct RowStage {
   }
 };
 
-// Start the copies of row `row` into `st` (16-byte cp.async when `vec`,
-// else plain loads for q, k, v and g~), uncommitted: q, k, v; g~, lse and
-// delta (backward) or the router scores r (forward; none when r is null);
-// idx and seg, or block choice's table and block scores.
+// Start the copies of n rows of width d of each of kN arrays (src[a] at
+// row stride d) into dst[a] at row stride ds, uncommitted, in one loop:
+// 16-byte cp.async when `vec` (d a multiple of 16 bytes' worth of
+// elements, the pointers 16-byte aligned), else plain loads.  Thread `tid`
+// of `nthreads` takes every nthreads-th copy.  The one-row kernels stage a
+// whole row with it, the split backward kernels (mosa_backward.cu) a tile.
+template <typename T, int kN>
+__device__ __forceinline__ void stage_rows(T* const (&dst)[kN], int ds,
+                                           const T* const (&src)[kN], int n,
+                                           int d, bool vec, int tid,
+                                           int nthreads) {
+  if (vec) {
+    constexpr int kV = 16 / sizeof(T);
+    const int cpr = d / kV;
+    for (int i = tid; i < n * cpr; i += nthreads) {
+      const int rr = i / cpr;
+      const int c = (i - rr * cpr) * kV;
+#pragma unroll
+      for (int a = 0; a < kN; ++a)
+        cp_async16(dst[a] + rr * ds + c, src[a] + rr * d + c);
+    }
+  } else {
+    for (int i = tid; i < n * d; i += nthreads) {
+      const int rr = i / d;
+#pragma unroll
+      for (int a = 0; a < kN; ++a) dst[a][rr * ds + i - rr * d] = src[a][i];
+    }
+  }
+}
+
+// One array.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ds,
+                                           const T* __restrict__ src, int n,
+                                           int d, bool vec, int tid,
+                                           int nthreads) {
+  T* const dsts[1] = {dst};
+  const T* const srcs[1] = {src};
+  stage_rows(dsts, ds, srcs, n, d, vec, tid, nthreads);
+}
+
+// Start the copies of row `row` into `st` (stage_rows), uncommitted: q, k,
+// v; g~, lse and delta (backward) or the router scores r (forward; none
+// when r is null); idx and seg, or block choice's table and block scores.
 template <typename T, bool kBlock, bool kBwd>
 __device__ void fetch_row(const RowStage<T, kBlock, kBwd>& st,
                           const RowLayout& L, const T* __restrict__ q,
@@ -111,40 +152,14 @@ __device__ void fetch_row(const RowStage<T, kBlock, kBwd>& st,
                           const int* __restrict__ seg, size_t row, int S,
                           int d, bool vec, int bs) {
   const size_t base = row * S;
-  const T* qb = q + base * d;
-  const T* kb = k + base * d;
-  const T* vb = v + base * d;
-  if (vec) {
-    constexpr int kV = 16 / sizeof(T);
-    const int cpr = d / kV;
-    for (int i = threadIdx.x; i < S * cpr; i += kRowThreads) {
-      const int rr = i / cpr;
-      const int c = (i - rr * cpr) * kV;
-      cp_async16(st.q + rr * L.dsT + c, qb + rr * d + c);
-      cp_async16(st.k + rr * L.dsT + c, kb + rr * d + c);
-      cp_async16(st.v + rr * L.dsT + c, vb + rr * d + c);
-    }
-    if constexpr (kBwd) {
-      const float* gb = gt + base * d;
-      const int cprf = d / 4;
-      for (int i = threadIdx.x; i < S * cprf; i += kRowThreads) {
-        const int rr = i / cprf;
-        const int c = (i - rr * cprf) * 4;
-        cp_async16(st.g + rr * L.dsF + c, gb + rr * d + c);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < S * d; i += kRowThreads) {
-      const int rr = i / d;
-      const int c = i - rr * d;
-      st.q[rr * L.dsT + c] = qb[i];
-      st.k[rr * L.dsT + c] = kb[i];
-      st.v[rr * L.dsT + c] = vb[i];
-      if constexpr (kBwd) st.g[rr * L.dsF + c] = gt[base * d + i];
-    }
-  }
+  const int tid = threadIdx.x;
+  T* const qkv[3] = {st.q, st.k, st.v};
+  const T* const src[3] = {q + base * d, k + base * d, v + base * d};
+  stage_rows(qkv, L.dsT, src, S, d, vec, tid, kRowThreads);
+  if constexpr (kBwd)
+    stage_rows(st.g, L.dsF, gt + base * d, S, d, vec, tid, kRowThreads);
   const int nb = S / bs;
-  for (int i = threadIdx.x; i < S; i += kRowThreads) {
+  for (int i = tid; i < S; i += kRowThreads) {
     if constexpr (kBwd) {
       cp_async4(st.lse + i, lse + base + i);
       cp_async4(st.delta + i, delta + base + i);

@@ -22,7 +22,16 @@ exp(-1e30 - lse) is not ~0.
     one launch when a row's S selected tokens fit one tile
     (``fused_bwd_fits``: S <= 64, d <= 128);
   * ``mosa_attention_bwd_dq_cuda`` / ``mosa_attention_bwd_dkv_cuda`` — the
-    two split CUDA kernels (any S), each with its launch counter;
+    two split CUDA kernels (any S; the route above S = 64), each with its
+    launch counter.  One block per (row, owned tile of 64 queries or
+    keys) streams the opposite rows in tiles of 32 through two cp.async
+    stages, skips the tile pairs in which no pair can pass the mask (by
+    the tiles' ranges of positions and segments, never assuming sorted
+    idx) and keeps its outputs in register tiles across the streamed
+    tiles.  At the IsoFLOP sweep's mosa8 point (k = 128, d 64, fp32) dq
+    is bound by bytes and dk/dv by operations on paper, and on an H100
+    both by shared-memory loads feeding the fp32 products
+    (``csrc/mosa_backward.cu``, PERF.md);
   * ``mosa_attention_bwd_cuda`` — the fused kernel where it fits, the two
     split kernels otherwise;
   * ``mosa_attention_bwd`` — the kernels for CUDA tensors, the plain

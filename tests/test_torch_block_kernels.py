@@ -189,13 +189,18 @@ def test_plain_versions_match_pallas_interpret():
 
 # The fused backward's edge cases of the card's checks, at smoke size:
 # S = 64 exactly (4 blocks of 16) and bs 3 (S = 21, not a multiple of 4)
-# with a ragged last block and empty slots.  (inputs, Pallas tile rows)
+# with a ragged last block and empty slots; and the split backward's S =
+# 128.  (inputs, Pallas tile rows)
 BWD_EDGE_CASES = {
     "S64 NB4 bs16 ragged two segs": (dict(B=1, H=2, NB=4, bs=16, T=100,
                                           ragged=True, two_segs=True,
                                           empty=1), 32),
     "bs3 S21 ragged empty": (dict(B=2, H=2, NB=7, bs=3, T=50, ragged=True,
                                   empty=3), 21),
+    # the split #7/#8's route (S = NB * bs = 128 > 64), one 128-row tile
+    "S128 NB8 bs16 ragged two segs": (dict(B=1, H=1, NB=8, bs=16, T=1000,
+                                           ragged=True, two_segs=True,
+                                           empty=2), 128),
 }
 
 

@@ -39,7 +39,12 @@ at span boundaries of its 8-block cluster, at a row whose scores take two
 windows and at a table read from device memory; two launches bitwise
 equal, one count per call.  Paged decode and packed prefill also at head
 dims 16, 24, 48 and 96, which their wrappers zero-pad to the kernels'
-widths (one count per call all the same).
+widths (one count per call all the same).  The split #3 and #4 (the
+route above S = 64) are held to the plain version and to themselves (two
+launches bitwise equal) at S 65, 128, 192 and 300, d 32 to 128, idx = -1
+keys anywhere, positions in no order (their tile skipping by value) and
+segments across tiles; the split #7 and #8 at NB * bs = 128, and at bs = 1
+bit for bit equal to the split #3 and #4.
 """
 
 import pytest
@@ -173,13 +178,17 @@ TRAIN_CASES = [(8, 276, 32, 64, 1024, 0, 0, False),
                (1, 2, 70, 128, 300, 5, 3, True)]
 
 
-def _train_inputs(dev, B, H, S, d, T, neg_keys, zero_rows, with_seg, seed=3):
+def _train_inputs(dev, B, H, S, d, T, neg_keys, zero_rows, with_seg,
+                  unsorted=False, seed=3):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(B, H, S, d, device=dev, generator=g)
                for _ in range(3))
     perm = torch.rand(B, H, T - 1, device=dev, generator=g).argsort(-1)
     idx = torch.cat([torch.zeros(B, H, 1, device=dev, dtype=torch.long),
                      perm[..., :S - 1] + 1], -1).sort(-1).values
+    if unsorted:          # the same positions in a random order
+        idx = idx.gather(-1, torch.rand(B, H, S, device=dev,
+                                        generator=g).argsort(-1))
     idx.view(-1)[torch.randint(0, idx.numel(), (neg_keys,), device=dev,
                                generator=g)] = -1
     r = torch.sigmoid(torch.randn(B, H, S, device=dev, generator=g))
@@ -334,6 +343,44 @@ def test_fused_bwd_matches_split_kernels(dev, case):
     for name, a, b in zip(("dq", "dk", "dv"), got, split):
         torch.testing.assert_close(a, b, atol=_tol(torch.float32),
                                    rtol=_tol(torch.float32), msg=name)
+
+
+# The split #3 and #4 (the route above S = 64): (B, H, S, d, T, neg_keys,
+# zero_rows, with_seg, unsorted).  S 65, 128, 192 and 300 (a ragged last
+# tile of 32 streamed rows and of 64 owned rows), d 32, 64, 80 and 128,
+# idx = -1 keys anywhere in the row, positions in no order (so that the
+# tile skipping by value meets ranges that overlap), and sorted segments,
+# whose boundaries fall inside tiles.
+SPLIT_CASES = [(1, 3, 65, 128, 300, 4, 3, True, False),
+               (2, 3, 128, 64, 1024, 6, 3, True, False),
+               (2, 3, 128, 64, 1024, 6, 3, True, True),
+               (1, 2, 192, 32, 500, 5, 0, False, True),
+               (1, 2, 300, 80, 700, 7, 2, True, False),
+               (1, 2, 300, 128, 700, 7, 0, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_bwd_matches_plain_and_is_deterministic(dev, dtype, case):
+    """The split #3 and #4 against the plain version; two launches equal
+    bit for bit (no atomics, a fixed order); ``mosa_attention_bwd_cuda``
+    routes here (one count each) and gives the same bits."""
+    from repro_torch.kernels.mosa_backward import (
+        LAUNCHES, LAUNCHES_DKV, LAUNCHES_DQ, mosa_attention_bwd_cuda,
+        mosa_attention_bwd_dkv_cuda, mosa_attention_bwd_dq_cuda)
+    args, seg, want = _bwd_inputs(dev, dtype, case)
+    runs = [(mosa_attention_bwd_dq_cuda(*args, seg=seg),)
+            + mosa_attention_bwd_dkv_cuda(*args, seg=seg) for _ in range(2)]
+    counters = (LAUNCHES, LAUNCHES_DQ, LAUNCHES_DKV)
+    before = [c.count for c in counters]
+    routed = mosa_attention_bwd_cuda(*args, seg=seg)
+    assert tuple(c.count - b for c, b in zip(counters, before)) == \
+        _bwd_route(case[2], case[3]) == (0, 1, 1)
+    for name, a, a2, r, b in zip(("dq", "dk", "dv"), *runs, routed, want):
+        assert a.dtype == dtype, name
+        assert torch.equal(a, a2) and torch.equal(a, r), name
+        torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
+                                   rtol=_tol(dtype), msg=name)
 
 
 def test_fused_bwd_refuses_rows_past_one_tile(dev):
@@ -775,6 +822,58 @@ def test_fused_block_bwd_at_bs1_equals_fused_token_bwd(dev):
                                                  delta, seg=seg)
         for name, a, b in zip(("dq", "dk", "dv"), blk, tok):
             assert torch.equal(a, b), (name, dtype)
+
+
+def test_split_block_bwd_at_bs1_equals_split_token_bwd(dev):
+    """At bs = 1 the split #7 and #8 expand the same positions and run the
+    same float operations as the split #3 and #4 (S 128, segments, -1
+    keys sorted last as the block layer keeps them): bit for bit equal in
+    fp32 and bf16."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kbwd
+    from repro_torch.kernels import mosa_block as kb
+    case = SPLIT_CASES[1]
+    q, k, v, idx, r, seg, gout = _train_inputs(dev, *case)
+    idx = torch.where(idx < 0, 2 ** 31 - 1, idx).sort(-1).values
+    idx = torch.where(idx == 2 ** 31 - 1, -1, idx).to(torch.int32)
+    o_pre, lse = km.mosa_attention_fwd_res_ref(q, k, v, idx, seg=seg)
+    gt = (gout * r[..., None]).contiguous()
+    delta = (gt * o_pre).sum(-1).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        bargs = (qq, kk, vv, idx, gt, lse, delta, 1, case[4])
+        targs = (qq, kk, vv, idx, gt, lse, delta)
+        blk = ((kb.mosa_block_attention_bwd_dq_cuda(*bargs, seg=seg),)
+               + kb.mosa_block_attention_bwd_dkv_cuda(*bargs, seg=seg))
+        tok = ((kbwd.mosa_attention_bwd_dq_cuda(*targs, seg=seg),)
+               + kbwd.mosa_attention_bwd_dkv_cuda(*targs, seg=seg))
+        for name, a, b in zip(("dq", "dk", "dv"), blk, tok):
+            assert torch.equal(a, b), (name, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_block_bwd_at_128_matches_plain_and_is_deterministic(dev,
+                                                                   dtype):
+    """The split #7 and #8 at NB * bs = 128 (8 blocks of 16, a ragged last
+    block, empty blocks, two segments) against the plain version, two
+    launches bitwise equal; the routed block backward takes them (one count
+    each) and gives the same bits."""
+    from repro_torch.kernels import mosa_block as kb
+    case = (1, 3, 8, 16, 64, 1000, 2, True)
+    args, seg, want = _fused_block_bwd_inputs(dev, dtype, case)
+    runs = [(kb.mosa_block_attention_bwd_dq_cuda(*args, seg=seg),)
+            + kb.mosa_block_attention_bwd_dkv_cuda(*args, seg=seg)
+            for _ in range(2)]
+    counters = (kb.LAUNCHES_BWD, kb.LAUNCHES_DQ, kb.LAUNCHES_DKV)
+    before = [c.count for c in counters]
+    routed = kb.mosa_block_attention_bwd_cuda(*args, seg=seg)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        _block_route(case[2], case[3], case[4]) == [0, 1, 1]
+    for name, a, a2, r, b in zip(("dq", "dk", "dv"), *runs, routed, want):
+        assert a.dtype == dtype, name
+        assert torch.equal(a, a2) and torch.equal(a, r), name
+        torch.testing.assert_close(a.float(), b, atol=_tol(dtype),
+                                   rtol=_tol(dtype), msg=name)
 
 
 def test_block_choice_serving_card_matches_cpu(dev):

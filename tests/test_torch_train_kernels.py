@@ -38,9 +38,13 @@ pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 
-# (B, H, S, d, T, edge): edge = segments, idx = -1 keys and r = 0 rows
+# (B, H, S, d, T, edge): edge = segments, idx = -1 keys and r = 0 rows.
+# S = 128 and 256 are the sizes the card's split backward takes (k of the
+# IsoFLOP sweep's mosa8 point is 128): JAX's 128-row tiles give one and two
+# tiles there.
 CASES = [(1, 1, 8, 16, 32, False), (2, 3, 24, 20, 100, False),
-         (2, 2, 16, 16, 64, True)]
+         (2, 2, 16, 16, 64, True), (1, 1, 128, 16, 1024, True),
+         (1, 1, 256, 16, 1024, True)]
 
 
 def _inputs(B, H, S, d, T, edge, seed=0):
@@ -60,7 +64,9 @@ def _inputs(B, H, S, d, T, edge, seed=0):
 
 
 def _blocks(S):
-    return functools.reduce(lambda a, b: b if S % b == 0 else a, (8, 16), 8)
+    """The Pallas tile: the largest of 8, 16 and 128 that divides S."""
+    return functools.reduce(lambda a, b: b if S % b == 0 else a,
+                            (8, 16, 128), 8)
 
 
 @pytest.mark.parametrize("case", CASES)
