@@ -39,8 +39,9 @@ Phases (any failure raises, so the script exits nonzero):
      at S <= 64, the split one above, checked by the counters) at the block
      slice's shape and at edge cases (a ragged last block, empty blocks,
      two segments, d 32 and 128, S = 64, bs 3 with S not a multiple of 4,
-     bs 1, rows with only block 0, bs 64, S = 65 as 5 blocks of 13), plus
-     #5/#6 at bs = 1 against #1/#2 on both routes and the fused block
+     bs 1, rows with only block 0, bs 64, S = 65 as 5 blocks of 13, S =
+     128 as 8 blocks of 16), plus #5/#6 at bs = 1 against #1/#2 on both
+     routes (S 37, and S 128 on the streaming one) and the fused block
      backward against the fused token backward (each pair bit for bit
      equal, or the phase fails), and the flash kernels #9 and #10 (GQA, Tq
      < Tk through q_offset, windows, ragged tiles, Tq not a multiple of
@@ -50,14 +51,15 @@ Phases (any failure raises, so the script exits nonzero):
   4. time each kernel, its plain version and one PyTorch yardstick call
      with CUDA events (L2 flushed before every timed launch); #1, #2, #5
      and #6 on the route the slice takes (the one-row kernel) with the
-     streaming kernel beside it (``stream_ms``); also the
+     streaming kernel beside it (``stream_ms``), and #1 and #2 at [24]'s
+     mosa8 shape (the streaming kernel, beside SDPA); also the
      autograd Functions' backward prologues (g~, dr, delta; token and
      block choice) on their own, paged decode at a second shape (the
      Scheduler mix: 8 rows of 128-1152 positions) and packed prefill at a
      second shape (one 256-token segment at past 768, the Scheduler's full
      chunk), both in the ``sched`` JSON's kernel_cases; paged decode's
-     and the split #3's and #4's (at [24]'s mosa8 shape) device time from
-     ``torch.profiler`` too (``device_ms``);
+     and the streaming #2's and the split #3's and #4's (at [24]'s mosa8
+     shape) device time from ``torch.profiler`` too (``device_ms``);
   5. serve ``mosa-paper-tiny-mosa32`` at full width with the kernel path
      and paged dense KV: batch 8, prompt 1024, 128 generated tokens — the
      launch counters must rise by exactly 6 (MoSA attention, one per layer
@@ -148,7 +150,7 @@ Phases (any failure raises, so the script exits nonzero):
      whose median over steps 1-5 gives the step time and tokens/s; the
      dense and mosa budgets within 5%; 24b: one microbatch of mosa8 and
      of mosa32 under ``torch.profiler``, each MoSA kernel's device time
-     by name;
+     by name (mosa8's streaming forward named on its own line);
  25. the card against the CPU for ``fixed32`` and ``routing32`` at full
      width and the same weights, as phase 9 (routing: identical cluster
      selections in every layer first), under deterministic algorithms.
@@ -518,6 +520,7 @@ def check_train_kernels(torch, dev, gen, errs):
     errs[f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]"] = max(
         errs["mosa_attention_fwd_res.o_pre@sweep"],
         errs["mosa_attention_fwd_res.lse@sweep"])
+    errs[f"mosa_attention[{SWEEP_MOSA8_NAME}]"] = errs["mosa_attention@sweep"]
 
 
 # Block choice (#5-#8): the slice's shape (B*H = 2208, NB 2, bs 16, S 32,
@@ -549,6 +552,10 @@ BLOCK_CASES = {
     # the first S past the one-row kernels at d 128 (streaming forward)
     "S=65 (NB=5 bs=13) d=128, empty": dict(B=1, H=2, NB=5, bs=13, d=128,
                                            T=100, empty=1),
+    # the streaming forward over four key tiles, the split backward
+    "NB*bs=128 (NB=8 bs=16), empty, segs": dict(B=2, H=3, NB=8, bs=16,
+                                                d=64, T=1000, empty=3,
+                                                two_segs=True),
 }
 
 
@@ -749,6 +756,20 @@ def check_block_bs1(torch, dev, gen):
                                                     delta, 1, 200, seg=seg)),
         flat(kbwd.mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta,
                                                 seg=seg))))
+    # S 128: the streaming kernels over four key tiles
+    q, k, v, idx, r, seg = mosa_inputs(torch, 2, 3, 128, 64, 1024, dev, gen,
+                                       neg_keys=6, zero_rows=3,
+                                       with_seg=True)
+    pairs += [
+        ("#5 vs #1 (stream, S 128)",
+         kb.mosa_block_attention_stream_cuda(q, k, v, idx, r, 1, 1024,
+                                             seg=seg),
+         km.mosa_attention_stream_cuda(q, k, v, idx, r, seg=seg)),
+        ("#6 vs #2 (stream, S 128)",
+         flat(kb.mosa_block_attention_fwd_res_stream_cuda(q, k, v, idx, 1,
+                                                           1024, seg=seg)),
+         flat(km.mosa_attention_fwd_res_stream_cuda(q, k, v, idx,
+                                                    seg=seg)))]
     for name, a, b in pairs:
         e = max_err(torch, a, b, FP32_TOL, FP32_TOL)
         log(f"  bs=1 {name}: bitwise equal {torch.equal(a, b)}, max|err| "
@@ -1034,13 +1055,29 @@ def time_kernels(torch, dev):
     # (a shape whose route is the fused kernel) stay as "[S 32]"
     q, k, v, idx, r, _ = mosa_inputs(torch, *SWEEP_MOSA8, 1024, dev, gen)
     mask = (idx[..., :, None] >= idx[..., None, :]) & (idx >= 0)[..., None, :]
-    mosa8, split_calls = time_train_kernels(torch, q, k, v, idx, r, mask,
-                                            int(mask.sum()), flush, gen)
+    pairs = int(mask.sum())
+    mosa8, mosa8_calls = time_train_kernels(torch, q, k, v, idx, r, mask,
+                                            pairs, flush, gen)
     for name in ("mosa_attention_bwd_dq", "mosa_attention_bwd_dkv"):
         out[f"{name}[S 32]"] = out[name]
         out[name] = mosa8[name]
-    out[f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]"] = mosa8[
-        "mosa_attention_fwd_res"]
+    fwd8 = f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]"
+    out[fwd8] = mosa8["mosa_attention_fwd_res"]
+    mosa8_calls[fwd8] = mosa8_calls.pop("mosa_attention_fwd_res")
+    # #1's streaming route at the same shape (no main path runs #1 above
+    # S = 64; serving a mosa8 model would), beside SDPA with the bool mask
+    fwd1 = f"mosa_attention[{SWEEP_MOSA8_NAME}]"
+    B8, H8, S8, d8 = SWEEP_MOSA8
+    out[fwd1] = dict(
+        ms=time_ms(torch, lambda: mosa_attention_cuda(q, k, v, idx, r),
+                   flush=flush),
+        plain_ms=time_ms(torch, lambda: mosa_attention_ref(q, k, v, idx, r),
+                         flush=flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), flush=flush),
+        bytes=4 * B8 * H8 * S8 * d8 * 4 + B8 * H8 * S8 * (4 + 4),
+        flops=4 * pairs * d8)
+    mosa8_calls[fwd1] = lambda: mosa_attention_cuda(q, k, v, idx, r)
 
     decode_calls = {}
     for name, lens in (("paged_attention_decode", DECODE_SLICE_LENGTHS),
@@ -1082,11 +1119,14 @@ def time_kernels(torch, dev):
             torch, call, flush, ("paged_decode_kernel",))["paged_decode_kernel"]
         log(f"  {name}: kernel {out[name]['device_ms']:.4f} ms (device time, "
             "torch.profiler)")
-    # the split #3 and #4 at mosa8, each kernel's own device time
-    for name, kernel in (("mosa_attention_bwd_dq", "mosa_bwd_dq_kernel"),
+    # the streaming #2 and #1 and the split #3 and #4 at mosa8, each
+    # kernel's own device time
+    for name, kernel in ((fwd8, "mosa_fwd_stream_kernel"),
+                         (fwd1, "mosa_fwd_stream_kernel"),
+                         ("mosa_attention_bwd_dq", "mosa_bwd_dq_kernel"),
                          ("mosa_attention_bwd_dkv", "mosa_bwd_dkv_kernel")):
         out[name]["device_ms"] = device_ms_by_kernel(
-            torch, split_calls[name], flush, (kernel,))[kernel]
+            torch, mosa8_calls[name], flush, (kernel,))[kernel]
         log(f"  {name} at {SWEEP_MOSA8_NAME}: kernel "
             f"{out[name]['device_ms']:.4f} ms (device time, torch.profiler)")
     for name, call in prefill_calls.items():
@@ -1295,8 +1335,8 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
     and in each of the split #3 and #4 rows (compare those with the sum of
     the two).  Also timed and logged: the Function's backward prologue
     (g~, dr, delta; ``kernels/mosa_vjp.py``) on its own.  Returns the
-    times and the split #3's and #4's calls (for their device times, taken
-    after every event timing)."""
+    times and the calls of #2 and the split #3 and #4 (for their device
+    times, taken after every event timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels.mosa_attention import (
         mosa_attention_fwd_res_cuda, mosa_attention_fwd_res_ref,
@@ -1364,7 +1404,9 @@ def time_train_kernels(torch, q, k, v, idx, r, mask, pairs, flush, gen):
             plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
             bytes=4 * vec + 3 * row + 2 * vec, flops=8 * pairs * d,
             prologue_ms=prologue_ms),
-    }, {"mosa_attention_bwd_dq": dq_call, "mosa_attention_bwd_dkv": dkv_call}
+    }, {"mosa_attention_fwd_res": lambda: mosa_attention_fwd_res_cuda(
+        q, k, v, idx), "mosa_attention_bwd_dq": dq_call,
+        "mosa_attention_bwd_dkv": dkv_call}
 
 
 def kernel_counters():
@@ -2693,6 +2735,10 @@ def profile_sweep_mosa(torch):
         log("  its MoSA kernels per microbatch (device ms): " + ", ".join(
             f"{name} {ms:.3f}" for name, ms in sorted(
                 out[pt.name]["mosa_kernels"].items(), key=lambda kv: -kv[1])))
+        stream_ms = out[pt.name]["mosa_kernels"].get("mosa_fwd_stream_kernel",
+                                                     0.0)
+        log(f"  the streaming forward #2 (mosa_fwd_stream_kernel): "
+            f"{stream_ms:.3f} ms a microbatch")
         del trainer
     return out
 
@@ -2902,6 +2948,7 @@ def main():
     sweep["kernel_cases"] = {
         name: {**times[name], "max_abs_err": errs[name]}
         for name in (f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]",
+                     f"mosa_attention[{SWEEP_MOSA8_NAME}]",
                      "mosa_attention_bwd_dq", "mosa_attention_bwd_dkv",
                      "mosa_attention_bwd_dq[S 32]",
                      "mosa_attention_bwd_dkv[S 32]")}

@@ -60,15 +60,48 @@
 //     over the keys in order, o = acc / max(l, 1e-30) * r), so at S <= 32,
 //     one key tile of the streaming kernel, the two routes agree bit for
 //     bit;
-//   * the streaming kernel (`mosa_attention_kernel`, any S; the route for
-//     S > 64): one block per (row, tile of up to 64 queries) stages its
-//     query tile and each 32-key tile of K and V in shared memory (fp32);
-//     warp w owns queries w, w+4, ...: lane j scores key j (the key tile
-//     has a padded row stride, so the 32 lanes hit 32 banks), the warp
-//     reduces max and sum with shuffles (a running softmax over the key
-//     tiles), and each lane accumulates the output columns it owns in a
-//     shared accumulator.  Block choice expands each staged row's position
-//     per element (bs may exceed the 32-key tile).
+//   * the streaming kernel (`mosa_fwd_stream_kernel`, any S; the route for
+//     S > 64, e.g. the IsoFLOP sweep's mosa8 point: 8 x 69 rows of S = k =
+//     128, d = 64).  Bytes bound it there too: q, k, v read once, o_pre
+//     and lse written once, ~73 MB, 0.0218 ms at 3.35 TB/s, against 1.167
+//     GFLOP of valid pairs, 0.017 ms at 67 TFLOP/s.  The design is the
+//     split dq's (mosa_backward.cu) with one product fewer and the TPU
+//     kernel's online softmax:
+//       - one block of 4 warps per (row, owned tile of 64 queries), the
+//         last (heaviest) tile launched first.  Each output element is
+//         written by one block and summed in a fixed order, without
+//         atomics, so two launches are bitwise equal;
+//       - q is copied once with 16-byte cp.async (mosa_row.cuh's
+//         stage_rows) into the second key stage, free until the second
+//         tile, and scaled into an fp32 tile; K and V stream in tiles of 32
+//         keys through two cp.async stages, the next needed tile's copies
+//         in flight while this one computes.  Rows whose d or pointers do
+//         not allow 16-byte copies take plain loads; bf16 is staged as
+//         bf16 and widened as it is read;
+//       - key tiles no query of the block can see are skipped by value
+//         before they are copied (mosa_tiles.cuh's plan_tiles, shared with
+//         the split backward; idx need not be sorted): at mosa8 a quarter
+//         of the tile pairs;
+//       - per tile, S = (scale q) k^T as 4 x 4 register micro-tiles and,
+//         in the same registers, the running max, the correction
+//         exp(m_prev - m_new) and the sum of each query row (a row's 32
+//         keys lie in one quarter-warp: 3 shuffles, no pass over shared
+//         memory; a warp per row, as the one-row kernel's softmax, cost
+//         over a third of the time, PERF.md), then O = corr O + P V as 8 x
+//         4 micro-tiles held in registers across all tiles and written
+//         once with 16-byte stores.  The products are bound by shared-
+//         memory loads, not FMAs (PERF.md), so the 8 lanes of a
+//         quarter-warp share the owned operand's address: 8 loads per 64
+//         FMAs in S, 12 per 128 in P V.  Tensor cores are not used: TF32
+//         breaks the 2e-5 fp32 tolerance;
+//       - ~62 KB of shared memory and at most 168 registers a block at
+//         d <= 64 (3 blocks an SM), ~110 KB at d up to 128 (2).
+//     Each score is summed over d in order, each output element over the
+//     keys in order by one thread, and each row sum takes the tree of the
+//     one-row kernel's warp_sum, so at S <= 32 (one key tile) the routes
+//     agree bit for bit.  Block choice expands each key tile's positions
+//     from the staged span of its block table (bs may exceed the 32-key
+//     tile).
 //
 // Rows are independent, so either grid has B*H blocks or more (2208 on the
 // slice), enough to fill 132 SMs several times over.  Unlike the TPU
@@ -78,180 +111,355 @@
 
 #include "common.cuh"
 #include "mosa_row.cuh"
+#include "mosa_tiles.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = 64;  // queries per thread block
-constexpr int kBlockK = 32;  // keys per shared-memory tile (one per lane)
+// ------------------------------------------------ streaming kernel (any S)
+constexpr int kStreamThreads = 128;  // 4 warps
+constexpr int kSP = kStream + 4;     // row stride of the S/P scratch
+static_assert(kOwn == 2 * kStream, "q is staged in one stage's K and V");
 
-size_t smem_bytes(int rows, int d) {
-  return sizeof(float) * (2 * static_cast<size_t>(rows) * d  // q tile, acc
-                          + kBlockK * (d + 1) + kBlockK * d  // k, v tiles
-                          + 2 * rows                         // m, l
-                          + kWarps * 32)                     // p per warp
-         + sizeof(int) * (2 * kBlockK + 2 * rows);           // idx, seg
+// Shared-memory layout of a streaming block for (S, d, element size):
+// dpad = d rounded up to 4 (the width the products run over), dsT = the
+// staged K and V row stride (16 bytes' worth of elements past the rounded
+// width, RowLayout's), dsF = the scaled q tile's (fp32), nt = the number of
+// key tiles.  The owned tile (q, then per query row m, l, the tile's
+// correction, the router score, position and segment), two stages of a
+// key tile (K, V, then per key its idx or block table and segment), the
+// S/P scratch, then one byte per key tile (whether it is needed).
+struct StreamLayout {
+  int dpad, dsT, dsF, nt;
+  size_t own_bytes, stage_bytes, bytes;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int S, int d,
+                                                      int tsize) {
+  StreamLayout L;
+  const int vT = 16 / tsize;
+  L.dpad = (d + 3) / 4 * 4;
+  L.dsT = (d + vT - 1) / vT * vT + vT;
+  L.dsF = L.dpad + 4;
+  L.nt = (S + kStream - 1) / kStream;
+  L.own_bytes = sizeof(float) * static_cast<size_t>(kOwn) * (L.dsF + 6);
+  L.stage_bytes = static_cast<size_t>(2 * kStream) * L.dsT * tsize +
+                  2 * kStream * sizeof(int);
+  L.bytes = L.own_bytes + 2 * L.stage_bytes +
+            sizeof(float) * kOwn * kSP + (L.nt + 15) / 16 * 16;
+  return L;
 }
 
-template <typename T, bool kResiduals, bool kBlock>
-__global__ void __launch_bounds__(kThreads)
-mosa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ idx,
-                      const int* __restrict__ seg, const float* __restrict__ r,
-                      T* __restrict__ o, float* __restrict__ o_pre,
-                      float* __restrict__ lse, int S, int d, int rows,
-                      float scale, int bs, int seq_len) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;  // padded row stride of the key tile
-  float* qs = smem;                     // [rows][d], pre-scaled
-  float* acc = qs + rows * d;           // [rows][d]
-  float* ks = acc + rows * d;           // [kBlockK][d + 1]
-  float* vs = ks + kBlockK * dp;        // [kBlockK][d]
-  float* m = vs + kBlockK * d;          // [rows]
-  float* l = m + rows;                  // [rows]
-  float* pw = l + rows;                 // [kWarps][32]
-  int* idx_k = reinterpret_cast<int*>(pw + kWarps * 32);  // [kBlockK]
-  int* seg_k = idx_k + kBlockK;         // [kBlockK]
-  int* idx_q = seg_k + kBlockK;         // [rows]
-  int* seg_q = idx_q + rows;            // [rows]
+// One block per (row, owned tile of 64 queries), the last (heaviest) tile
+// launched first.  The block stages its queries once (scaled to fp32) and
+// streams the keys' K and V in tiles of 32 through two cp.async stages,
+// skipping by value the tiles no query of the block can see (plan_tiles);
+// per needed tile:
+//   phase A: S = (scale q) k^T as 4 x 4 register micro-tiles (queries
+//            a0..a0+3, keys aj + 8 m; each score summed over d in order,
+//            dot4 by dot4), then, still in registers, the running softmax
+//            of those rows under the explicit mask: the 8 lanes of a
+//            quarter-warp hold a row's 32 keys, so its max, the correction
+//            exp(m_prev - m_new) and its sum reduce over the micro-tile
+//            and 3 shuffles; P and the corrections go to shared memory;
+//   phase B: O = corr * O + P V as 8 x 4 register micro-tiles (rows
+//            b0..b0+7, columns bc + 64 w; each element summed by one thread
+//            over the keys in order), held in registers across all tiles.
+// The end divides by the floored sum, times the router score (or o_pre and
+// lse), and writes each output element once with 16-byte stores.
+template <typename T, bool kResiduals, bool kBlock, int kCW>
+__global__ void __launch_bounds__(kStreamThreads, kCW == 1 ? 3 : 2)
+mosa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ idx,
+                       const int* __restrict__ seg,
+                       const float* __restrict__ r, T* __restrict__ o,
+                       float* __restrict__ o_pre, float* __restrict__ lse,
+                       int S, int d, float scale, bool vec, int bs,
+                       int seq_len) {
+  extern __shared__ float4 stream_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(stream_smem);
+  const StreamLayout L = stream_layout(S, d, sizeof(T));
+  float* qs = reinterpret_cast<float*>(base);  // [kOwn][dsF], scale * q
+  float* m_o = qs + kOwn * L.dsF;              // the row max, at the end
+  float* l_o = m_o + kOwn;                     // the row sum, at the end
+  float* corr_o = l_o + kOwn;                  // this tile's correction
+  float* score_o = corr_o + kOwn;              // router score (#1, #5)
+  int* pos_o = reinterpret_cast<int*>(score_o + kOwn);
+  int* seg_o = pos_o + kOwn;
+  struct Stage {
+    T *k, *v;  // [kStream][dsT]
+    int *pos, *seg;
+  };
+  auto stage = [&](int s) {
+    T* p = reinterpret_cast<T*>(base + L.own_bytes + s * L.stage_bytes);
+    int* w = reinterpret_cast<int*>(p + 2 * kStream * L.dsT);
+    return Stage{p, p + kStream * L.dsT, w, w + kStream};
+  };
+  float* sp = reinterpret_cast<float*>(base + L.own_bytes +
+                                       2 * L.stage_bytes);  // [kOwn][kSP]
+  unsigned char* need = reinterpret_cast<unsigned char*>(sp + kOwn * kSP);
 
-  const size_t row = blockIdx.x;        // (b, h) row
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * S;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int nq = min(kBlockQ, S - q0);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const size_t row0 = row * S;
+  const int o0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  const int no = min(kOwn, S - o0);
 
-  const T* qb = q + (row0 + q0) * d;
-  for (int i = threadIdx.x; i < nq * d; i += kThreads) {
-    qs[i] = to_float(qb[i]) * scale;
-    acc[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < nq; i += kThreads) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    if constexpr (kBlock) {
-      bool valid;
-      idx_q[i] = sel_pos<kBlock>(idx, row, S, q0 + i, bs, seq_len, valid);
-    } else {
-      idx_q[i] = idx[row0 + q0 + i];
+  // q lands in its dtype in stage 1's K and V ([kOwn][dsT]), free until
+  // the second needed tile is issued; the router scores beside it.
+  T* qt = stage(1).k;
+  stage_rows(qt, L.dsT, q + (row0 + o0) * d, no, d, vec, tid,
+             kStreamThreads);
+  if constexpr (!kResiduals)
+    for (int i = tid; i < no; i += kStreamThreads)
+      cp_async4(score_o + i, kBlock ? r + row * (S / bs) + (o0 + i) / bs
+                                    : r + row0 + o0 + i);
+  cp_async_commit();
+  // Columns d..dpad-1 are never copied, nor is seg when there is none
+  // (every key in segment 0): zeros.
+  if (d < L.dpad)
+    for (int s = 0; s < 2; ++s) {
+      zero_rect<kStreamThreads>(stage(s).k, L.dsT, 0, kStream, d, L.dpad);
+      zero_rect<kStreamThreads>(stage(s).v, L.dsT, 0, kStream, d, L.dpad);
     }
-    seg_q[i] = seg ? seg[row0 + q0 + i] : 0;
+  if (!seg && tid < 2 * kStream) stage(tid / kStream).seg[tid % kStream] = 0;
+  plan_tiles<kBlock, true, kStreamThreads>(idx, seg, row, S, o0, bs, seq_len,
+                                           pos_o, seg_o, need, L.nt);
+
+  // Rows past S of a ragged tile are zeros: P V multiplies them by 0.
+  auto issue = [&](int t, int s) {
+    const int s0 = t * kStream, ns = min(kStream, S - s0);
+    const Stage st = stage(s);
+    T* const kv[2] = {st.k, st.v};
+    const T* const src[2] = {k + (row0 + s0) * d, v + (row0 + s0) * d};
+    stage_rows(kv, L.dsT, src, ns, d, vec, tid, kStreamThreads);
+    stage_meta<kBlock>(st.pos, st.seg, idx, seg, row, S, s0, ns, bs);
+    if (ns < kStream) {
+      zero_rect<kStreamThreads>(st.k, L.dsT, ns, kStream, 0, L.dpad);
+      zero_rect<kStreamThreads>(st.v, L.dsT, ns, kStream, 0, L.dpad);
+    }
+  };
+
+  int cur = next_tile(need, -1, L.nt);
+  if (cur < L.nt) issue(cur, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();  // q and the first needed tile have landed
+  // q scaled first, in fp32, as the one-row kernel and the TPU kernel do;
+  // rows past S are zeros
+  for (int i = tid; i < kOwn * L.dpad / 4; i += kStreamThreads) {
+    const int rr = i / (L.dpad / 4);
+    const int c = (i - rr * (L.dpad / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (rr < no) {
+      x = ld4(qt + rr * L.dsT + c);
+      x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    }
+    *reinterpret_cast<float4*>(qs + rr * L.dsF + c) = x;
   }
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    const int nk = min(kBlockK, S - k0);
-    __syncthreads();  // the previous tile is consumed (first pass: q is staged)
-    const T* kb = k + (row0 + k0) * d;
-    const T* vb = v + (row0 + k0) * d;
-    for (int i = threadIdx.x; i < nk * d; i += kThreads) {
-      const int j = i / d;
-      ks[j * dp + (i - j * d)] = to_float(kb[i]);
-      vs[i] = to_float(vb[i]);
-    }
-    if (threadIdx.x < nk) {
-      if constexpr (kBlock) {
+  // Phase A's micro-tile: rows a0..a0+3, keys aj + 8 m (the 8 lanes of a
+  // quarter-warp hold a row's 32 keys); phase B's: rows b0..b0+7, columns
+  // bc + 64 w.  m_r and l_r, each row's running max and sum, are the same
+  // in the 8 lanes of its quarter-warp.
+  const int a0 = (tid / 8) * 4, aj = tid % 8;
+  const int b0 = (tid / 16) * 8, bc = (tid % 16) * 4;
+  float m_r[4] = {kNegInf, kNegInf, kNegInf, kNegInf}, l_r[4] = {};
+  float acc[kCW][8][4] = {};
+  for (int s = 0; cur < L.nt; s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // tile cur landed; the other stage and S/P are free
+    const int nxt = next_tile(need, cur, L.nt);
+    if (nxt < L.nt) issue(nxt, s ^ 1);
+    cp_async_commit();
+    const Stage st = stage(s);
+    const int s0 = cur * kStream, ns = min(kStream, S - s0);
+
+    // Phase A: the 8 lanes of a quarter-warp share their queries (one
+    // address) and read 8 key rows that start 4 banks apart.
+    {
+      float sc[4][4] = {};
+#pragma unroll 2
+      for (int c = 0; c < L.dpad; c += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) x[a] = ld4(qs + (a0 + a) * L.dsF + c);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) y[m] = ld4(st.k + (aj + 8 * m) * L.dsT + c);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) sc[a][m] = dot4(x[a], y[m], sc[a][m]);
+      }
+
+      // The running softmax of rows a0..a0+3 over this tile, under the
+      // explicit mask (a masked score is -1e30, and exp(-1e30 - m) is not 0
+      // in a row with no valid key yet).  The row max and sum reduce over
+      // m in registers, then over the quarter-warp's 8 lanes with
+      // shuffles: the tree of warp_sum over a warp whose lane j holds key
+      // j (the one-row kernel's), key j + 16 added first, then j + 8.
+      int kp[4], ks[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int j = aj + 8 * m;
         bool valid;
-        const int p = sel_pos<kBlock>(idx, row, S, k0 + threadIdx.x, bs,
-                                      seq_len, valid);
-        idx_k[threadIdx.x] = valid ? p : -1;
+        const int pj = tile_pos<kBlock>(st.pos, s0, j, bs, seq_len, valid);
+        kp[m] = (j < ns && valid) ? pj : -1;
+        ks[m] = st.seg[j];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = a0 + a;
+        const int iq = pos_o[i], sq = seg_o[i];
+        bool ok[4];
+        float x[4], pr[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          ok[m] = pair_ok(iq, sq, kp[m], ks[m]);
+          x[m] = ok[m] ? sc[a][m] : kNegInf;
+        }
+        float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
+        const float m_new = fmaxf(m_r[a], mx);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) pr[m] = ok[m] ? expf(x[m] - m_new) : 0.f;
+        const float corr = expf(m_r[a] - m_new);
+        float sum = (pr[0] + pr[2]) + (pr[1] + pr[3]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(kFullMask, sum, o);
+        m_r[a] = m_new;
+        l_r[a] = l_r[a] * corr + sum;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) sp[i * kSP + aj + 8 * m] = pr[m];
+        if (aj == 0) corr_o[i] = corr;
+      }
+    }
+    __syncthreads();  // P and the corrections
+
+    // Phase B: a quarter-warp shares its rows of P (one address) and reads
+    // 8 neighbouring column groups of V.
+    {
+      const float4 c4[2] = {ld4(corr_o + b0), ld4(corr_o + b0 + 4)};
+      const float cr[8] = {c4[0].x, c4[0].y, c4[0].z, c4[0].w,
+                           c4[1].x, c4[1].y, c4[1].z, c4[1].w};
+#pragma unroll
+      for (int w = 0; w < kCW; ++w)
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[w][a][b] *= cr[a];
+#pragma unroll 2
+      for (int j = 0; j < kStream; j += 4) {
+        float pa[8][4];
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const float4 p4 = ld4(sp + (b0 + a) * kSP + j);
+          pa[a][0] = p4.x;
+          pa[a][1] = p4.y;
+          pa[a][2] = p4.z;
+          pa[a][3] = p4.w;
+        }
+#pragma unroll
+        for (int w = 0; w < kCW; ++w) {
+          const int c = bc + 64 * w;
+          if (c >= L.dpad) continue;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {  // keys j + u, in order
+            const float4 v4 = ld4(st.v + (j + u) * L.dsT + c);
+            const float vb[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+            for (int a = 0; a < 8; ++a)
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                acc[w][a][b] = fmaf(pa[a][u], vb[b], acc[w][a][b]);
+          }
+        }
+      }
+    }
+    cur = nxt;
+  }
+  if (aj == 0)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      m_o[a0 + a] = m_r[a];
+      l_o[a0 + a] = l_r[a];
+    }
+  __syncthreads();  // every row's m and l
+
+  // Block choice: an invalid query row (an empty block, or past seq_len;
+  // its raw position says which) is 0.
+#pragma unroll
+  for (int w = 0; w < kCW; ++w) {
+    const int c = bc + 64 * w;
+    if (c >= L.dpad) continue;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int i = b0 + a;
+      if (i >= no) continue;
+      const bool valid =
+          !kBlock || (pos_o[i] >= 0 && pos_o[i] < seq_len);
+      const float den = fmaxf(l_o[i], 1e-30f);
+      float out[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float x = acc[w][a][b] / den;
+        out[b] = valid ? (kResiduals ? x : x * score_o[i]) : 0.f;
+      }
+      const size_t at = (row0 + o0 + i) * d + c;
+      if constexpr (kResiduals) {
+        if (vec && c + 4 <= d) {
+          st4(o_pre + at, out);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (c + b < d) o_pre[at + b] = out[b];
+        }
       } else {
-        idx_k[threadIdx.x] = idx[row0 + k0 + threadIdx.x];
-      }
-      seg_k[threadIdx.x] = seg ? seg[row0 + k0 + threadIdx.x] : 0;
-    }
-    __syncthreads();
-
-    const bool has_key = lane < nk;
-    const int ik = has_key ? idx_k[lane] : -1;
-    const int sk = has_key ? seg_k[lane] : 0;
-    const float* kr = ks + lane * dp;
-    for (int qi = warp; qi < nq; qi += kWarps) {
-      const bool ok = has_key && ik >= 0 && idx_q[qi] >= ik && seg_q[qi] == sk;
-      float s = kNegInf;
-      if (ok) {
-        const float* qr = qs + qi * d;
-        float a = 0.f;
-        for (int c = 0; c < d; ++c) a = fmaf(qr[c], kr[c], a);
-        s = a;
-      }
-      const float m_prev = m[qi];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = ok ? expf(s - m_new) : 0.f;
-      const float corr = expf(m_prev - m_new);
-      const float p_sum = warp_sum(p);
-      pw[warp * 32 + lane] = p;
-      __syncwarp();
-      float* ar = acc + qi * d;
-      for (int c = lane; c < d; c += 32) {
-        float a = ar[c] * corr;
-        for (int j = 0; j < nk; ++j) a = fmaf(pw[warp * 32 + j], vs[j * d + c], a);
-        ar[c] = a;
-      }
-      if (lane == 0) {
-        m[qi] = m_new;
-        l[qi] = l[qi] * corr + p_sum;
-      }
-      __syncwarp();  // pw and m/l are reused by this warp's next query
-    }
-  }
-  __syncthreads();
-
-  // Block choice zeroes invalid query rows; their validity and block
-  // score are read again here, off the hot loop.
-  if constexpr (kResiduals) {
-    float* ob = o_pre + (row0 + q0) * d;
-    if constexpr (kBlock) {
-      for (int i = threadIdx.x; i < nq * d; i += kThreads) {
-        bool valid;
-        sel_pos<kBlock>(idx, row, S, q0 + i / d, bs, seq_len, valid);
-        ob[i] = valid ? acc[i] / fmaxf(l[i / d], 1e-30f) : 0.f;
-      }
-    } else {
-      for (int i = threadIdx.x; i < nq * d; i += kThreads)
-        ob[i] = acc[i] / fmaxf(l[i / d], 1e-30f);
-    }
-    for (int i = threadIdx.x; i < nq; i += kThreads)
-      lse[row0 + q0 + i] = m[i] + logf(fmaxf(l[i], 1e-30f));
-  } else {
-    T* ob = o + (row0 + q0) * d;
-    for (int i = threadIdx.x; i < nq * d; i += kThreads) {
-      const int qi = i / d;
-      if constexpr (kBlock) {
-        bool valid;
-        sel_pos<kBlock>(idx, row, S, q0 + qi, bs, seq_len, valid);
-        const float out = acc[i] / fmaxf(l[qi], 1e-30f) *
-                          sel_score<kBlock>(r, row, S, q0 + qi, bs);
-        store_as(ob + i, valid ? out : 0.f);
-      } else {
-        const float out = acc[i] / fmaxf(l[qi], 1e-30f) * r[row0 + q0 + qi];
-        store_as(ob + i, out);
+        if (vec && c + 4 <= d) {
+          st4(o + at, out);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (c + b < d) store_as(o + at + b, out[b]);
+        }
       }
     }
   }
+  if constexpr (kResiduals)
+    for (int i = tid; i < no; i += kStreamThreads)
+      lse[row0 + o0 + i] = m_o[i] + logf(fmaxf(l_o[i], 1e-30f));
 }
 
+// Grid (BH, ceil(S / 64)) of 128 threads; kCW (phase B's groups of 64
+// columns) from d.
 template <typename T, bool kResiduals, bool kBlock>
 int launch(const void* q, const void* k, const void* v, const void* idx,
            const void* seg, const void* r, void* o, void* o_pre, void* lse,
            int BH, int S, int d, float scale, int bs, int seq_len,
            cudaStream_t stream) {
-  const int rows = S < kBlockQ ? S : kBlockQ;
-  const size_t smem = smem_bytes(rows, d);
-  cudaError_t err = allow_smem(mosa_attention_kernel<T, kResiduals, kBlock>,
-                               smem);
+  if (S < 1 || d < 1 || d > kRowMaxD || BH < 0 || bs < 1 || S % bs != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (BH == 0) return static_cast<int>(cudaSuccess);
+  const StreamLayout L = stream_layout(S, d, sizeof(T));
+  const bool vec = d % (16 / sizeof(T)) == 0 && aligned16(q) &&
+                   aligned16(k) && aligned16(v) &&
+                   aligned16(kResiduals ? o_pre : o);
+  auto* kernel = L.dpad <= 64
+                     ? mosa_fwd_stream_kernel<T, kResiduals, kBlock, 1>
+                     : mosa_fwd_stream_kernel<T, kResiduals, kBlock, 2>;
+  const cudaError_t err = allow_smem(kernel, L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (S + kBlockQ - 1) / kBlockQ);
-  mosa_attention_kernel<T, kResiduals, kBlock><<<grid, kThreads, smem,
-                                                 stream>>>(
+  const dim3 grid(BH, (S + kOwn - 1) / kOwn);
+  kernel<<<grid, kStreamThreads, L.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(r),
       static_cast<T*>(o), static_cast<float*>(o_pre),
-      static_cast<float*>(lse), S, d, rows, scale, bs, seq_len);
+      static_cast<float*>(lse), S, d, scale, vec, bs, seq_len);
   return static_cast<int>(cudaGetLastError());
 }
 

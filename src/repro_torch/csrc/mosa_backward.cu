@@ -69,10 +69,11 @@
 //     instructions a clock, so the tiles give every quarter-warp one
 //     address of the owned operand;
 //   * tile pairs with no valid pair are skipped by value before they are
-//     copied (plan_tiles: the owned tile's and each streamed tile's range
-//     of positions and segments, read from device memory; idx is never
-//     assumed sorted): at mosa8 a quarter of the tile pairs, the upper
-//     off-diagonal of each row;
+//     copied (mosa_tiles.cuh's plan_tiles, which the streaming forward in
+//     mosa_attention.cu shares: the owned tile's and each streamed tile's
+//     range of positions and segments, read from device memory; idx is
+//     never assumed sorted): at mosa8 a quarter of the tile pairs, the
+//     upper off-diagonal of each row;
 //   * 256 threads and ~80 KB (dq) / ~89 KB (dk/dv) of shared memory a block
 //     at d = 64 fp32 and at most 128 registers a thread, so two blocks per
 //     SM; d up to 128 widens the register tiles to two groups of 64
@@ -141,11 +142,11 @@
 // PERF.md): within a block a row's copies and its compute do not overlap,
 // and the resident blocks hide only part of that.
 
-#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mosa_row.cuh"
+#include "mosa_tiles.cuh"
 
 namespace {
 
@@ -153,9 +154,8 @@ using namespace repro;
 
 // ------------------------------------------------ split dq, dk/dv (any S)
 constexpr int kSplitThreads = 256;  // 8 warps
-constexpr int kSplitWarps = kSplitThreads / 32;
-constexpr int kOwn = 64;     // owned rows per block: queries (dq), keys (dkv)
-constexpr int kStream = 32;  // streamed rows per tile: keys (dq), queries (dkv)
+// kOwn (64) owned rows per block: queries (dq), keys (dkv); kStream (32)
+// streamed rows per tile: keys (dq), queries (dkv) (mosa_tiles.cuh)
 constexpr int kSG = kStream / 4;  // phase A: streamed rows j0 + kSG * m
 constexpr int kCG = 16;  // phase B: groups of 4 columns per 64 columns
 
@@ -206,149 +206,6 @@ __host__ __device__ inline SplitLayout split_layout(int S, int d, int tsize,
                      sizeof(float);
   if (dq && L.bytes < L.own_bytes + red) L.bytes = L.own_bytes + red;
   return L;
-}
-
-// What a set of rows can take part in: as queries, the largest position
-// and the range of segments (every row); as keys, the smallest position and
-// the range of segments (valid keys only).  An empty set meets nothing.
-struct Span {
-  int qmax, qsmin, qsmax, kmin, ksmin, ksmax;
-};
-
-__device__ __forceinline__ Span empty_span() {
-  return {INT_MIN, INT_MAX, INT_MIN, INT_MAX, INT_MAX, INT_MIN};
-}
-
-__device__ __forceinline__ void span_add(Span& s, int pos, bool key, int sg) {
-  s.qmax = max(s.qmax, pos);
-  s.qsmin = min(s.qsmin, sg);
-  s.qsmax = max(s.qsmax, sg);
-  if (key) {
-    s.kmin = min(s.kmin, pos);
-    s.ksmin = min(s.ksmin, sg);
-    s.ksmax = max(s.ksmax, sg);
-  }
-}
-
-__device__ __forceinline__ Span warp_span(Span s) {
-  s.qmax = __reduce_max_sync(kFullMask, s.qmax);
-  s.qsmin = __reduce_min_sync(kFullMask, s.qsmin);
-  s.qsmax = __reduce_max_sync(kFullMask, s.qsmax);
-  s.kmin = __reduce_min_sync(kFullMask, s.kmin);
-  s.ksmin = __reduce_min_sync(kFullMask, s.ksmin);
-  s.ksmax = __reduce_max_sync(kFullMask, s.ksmax);
-  return s;
-}
-
-// Whether a query of `qs` and a key of `ks` can pass pair_ok: a valid key
-// at or before the last query, in a segment both ranges share.  A tile pair
-// that fails this has no valid pair and is skipped; one that passes is
-// computed under the per-pair mask.
-__device__ __forceinline__ bool spans_meet(const Span& qs, const Span& ks) {
-  return ks.kmin <= qs.qmax && ks.ksmin <= qs.qsmax && qs.qsmin <= ks.ksmax;
-}
-
-// Once per block, before the streamed tiles: the owned tile's positions
-// (kDQ: each query's raw position; else each key's, -1 where the row is no
-// key; -1 for rows past S in both) and segments into shared memory, and
-// need[t] = whether streamed tile t meets the owned tile.  Every warp reads
-// the owned rows (64 ints, cached) and every 8th streamed tile from device
-// memory (sel_pos expands block choice's table).  Ends with a barrier.
-template <bool kBlock, bool kDQ>
-__device__ void plan_tiles(const int* __restrict__ idx,
-                           const int* __restrict__ seg, size_t row, int S,
-                           int o0, int bs, int seq_len, int* pos_o, int* seg_o,
-                           unsigned char* need, int nt) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  Span own = empty_span();
-  for (int h = lane; h < kOwn; h += 32) {
-    const int r = o0 + h;
-    int p = -1, sg = 0;
-    if (r < S) {
-      bool valid;
-      p = sel_pos<kBlock>(idx, row, S, r, bs, seq_len, valid);
-      sg = seg ? seg[row * S + r] : 0;
-      span_add(own, p, valid, sg);
-      if (!kDQ && !valid) p = -1;
-    }
-    if (warp == 0) {
-      pos_o[h] = p;
-      seg_o[h] = sg;
-    }
-  }
-  own = warp_span(own);
-  for (int t = warp; t < nt; t += kSplitWarps) {
-    Span sp = empty_span();
-    const int r = t * kStream + lane;
-    if (r < S) {
-      bool valid;
-      const int p = sel_pos<kBlock>(idx, row, S, r, bs, seq_len, valid);
-      span_add(sp, p, valid, seg ? seg[row * S + r] : 0);
-    }
-    sp = warp_span(sp);
-    if (lane == 0) need[t] = kDQ ? spans_meet(own, sp) : spans_meet(sp, own);
-  }
-  __syncthreads();
-}
-
-// The first needed streamed tile after t (nt when there is none).
-__device__ __forceinline__ int next_tile(const unsigned char* need, int t,
-                                         int nt) {
-  for (++t; t < nt && !need[t]; ++t) {
-  }
-  return t;
-}
-
-// Start the copies of streamed tile [s0, s0 + ns)'s per-row words,
-// uncommitted: into `pos` the tile's idx (token choice) or the span of the
-// block table its rows fall in (block choice, at most kStream entries;
-// tile_pos expands it), into `sg` its seg when there is one.
-template <bool kBlock>
-__device__ __forceinline__ void stage_meta(int* pos, int* sg,
-                                           const int* __restrict__ idx,
-                                           const int* __restrict__ seg,
-                                           size_t row, int S, int s0, int ns,
-                                           int bs) {
-  const int t = threadIdx.x;
-  if constexpr (kBlock) {
-    const int b0 = s0 / bs;
-    if (t <= (s0 + ns - 1) / bs - b0)
-      cp_async4(pos + t, idx + row * (S / bs) + b0 + t);
-  } else {
-    if (t < ns) cp_async4(pos + t, idx + row * S + s0 + t);
-  }
-  if (seg && t >= 32 && t < 32 + ns)
-    cp_async4(sg + t - 32, seg + row * S + s0 + t - 32);
-}
-
-// Streamed row j's position from the staged words (sel_pos's rule): the
-// raw position, valid iff it is a key.
-template <bool kBlock>
-__device__ __forceinline__ int tile_pos(const int* pos, int s0, int j, int bs,
-                                        int seq_len, bool& valid) {
-  if constexpr (kBlock) {
-    const int r = s0 + j;
-    const int b = pos[r / bs - s0 / bs];
-    const int p = b * bs + r % bs;
-    valid = b >= 0 && p < seq_len;
-    return p;
-  } else {
-    const int p = pos[j];
-    valid = p >= 0;
-    return p;
-  }
-}
-
-// Zero rows [r0, r1) x columns [c0, c1) of a staged array (plain stores).
-template <typename T>
-__device__ __forceinline__ void zero_rect(T* p, int stride, int r0, int r1,
-                                          int c0, int c1) {
-  const int w = c1 - c0;
-  for (int i = threadIdx.x; i < (r1 - r0) * w; i += kSplitThreads) {
-    const int r = i / w;
-    store_as(p + (r0 + r) * stride + c0 + i - r * w, 0.f);
-  }
 }
 
 // Phase A: S = a1 . b1 and E = a2 . b2 for owned rows o0..o0+3 and
@@ -554,16 +411,16 @@ mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Columns d..dpad-1 are never copied, nor is seg when there is none
   // (every key in segment 0): zeros.
   if (d < L.dpad) {
-    zero_rect(qo, L.dsT, 0, kOwn, d, L.dpad);
-    zero_rect(go, L.dsF, 0, kOwn, d, L.dpad);
+    zero_rect<kSplitThreads>(qo, L.dsT, 0, kOwn, d, L.dpad);
+    zero_rect<kSplitThreads>(go, L.dsF, 0, kOwn, d, L.dpad);
     for (int s = 0; s < 2; ++s) {
-      zero_rect(stage(s).k, L.dsT, 0, kStream, d, L.dpad);
-      zero_rect(stage(s).v, L.dsT, 0, kStream, d, L.dpad);
+      zero_rect<kSplitThreads>(stage(s).k, L.dsT, 0, kStream, d, L.dpad);
+      zero_rect<kSplitThreads>(stage(s).v, L.dsT, 0, kStream, d, L.dpad);
     }
   }
   if (!seg && tid < 2 * kStream) stage(tid / kStream).seg[tid % kStream] = 0;
-  plan_tiles<kBlock, true>(idx, seg, row, S, o0, bs, seq_len, pos_o, seg_o,
-                           need, L.nt);
+  plan_tiles<kBlock, true, kSplitThreads>(idx, seg, row, S, o0, bs,
+                                        seq_len, pos_o, seg_o, need, L.nt);
 
   // Rows past S of a ragged tile are zeros: phase B multiplies them by 0.
   auto issue = [&](int t, int s) {
@@ -574,8 +431,8 @@ mosa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_rows(kv, L.dsT, src, ns, d, vec, tid, kSplitThreads);
     stage_meta<kBlock>(st.pos, st.seg, idx, seg, row, S, s0, ns, bs);
     if (ns < kStream) {
-      zero_rect(st.k, L.dsT, ns, kStream, 0, L.dpad);
-      zero_rect(st.v, L.dsT, ns, kStream, 0, L.dpad);
+      zero_rect<kSplitThreads>(st.k, L.dsT, ns, kStream, 0, L.dpad);
+      zero_rect<kSplitThreads>(st.v, L.dsT, ns, kStream, 0, L.dpad);
     }
   };
 
@@ -704,16 +561,16 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_commit();
   if (d < L.dpad) {
-    zero_rect(ko, L.dsT, 0, kOwn, d, L.dpad);
-    zero_rect(vo, L.dsT, 0, kOwn, d, L.dpad);
+    zero_rect<kSplitThreads>(ko, L.dsT, 0, kOwn, d, L.dpad);
+    zero_rect<kSplitThreads>(vo, L.dsT, 0, kOwn, d, L.dpad);
     for (int s = 0; s < 2; ++s) {
-      zero_rect(stage(s).q, L.dsT, 0, kStream, d, L.dpad);
-      zero_rect(stage(s).g, L.dsF, 0, kStream, d, L.dpad);
+      zero_rect<kSplitThreads>(stage(s).q, L.dsT, 0, kStream, d, L.dpad);
+      zero_rect<kSplitThreads>(stage(s).g, L.dsF, 0, kStream, d, L.dpad);
     }
   }
   if (!seg && tid < 2 * kStream) stage(tid / kStream).seg[tid % kStream] = 0;
-  plan_tiles<kBlock, false>(idx, seg, row, S, o0, bs, seq_len, pos_o, seg_o,
-                            need, L.nt);
+  plan_tiles<kBlock, false, kSplitThreads>(idx, seg, row, S, o0, bs,
+                                        seq_len, pos_o, seg_o, need, L.nt);
 
   auto issue = [&](int t, int s) {
     const int s0 = t * kStream, ns = min(kStream, S - s0);
@@ -728,8 +585,8 @@ mosa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async4(st.delta + tid - 64, delta + row0 + s0 + tid - 64);
     }
     if (ns < kStream) {
-      zero_rect(st.q, L.dsT, ns, kStream, 0, L.dpad);
-      zero_rect(st.g, L.dsF, ns, kStream, 0, L.dpad);
+      zero_rect<kSplitThreads>(st.q, L.dsT, ns, kStream, 0, L.dpad);
+      zero_rect<kSplitThreads>(st.g, L.dsF, ns, kStream, 0, L.dpad);
     }
   };
 

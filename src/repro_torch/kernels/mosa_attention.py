@@ -12,7 +12,12 @@ Replaces two TPU kernels of ``repro/kernels/mosa_attention.py``:
   * each ``*_cuda`` picks one of two routes and launches it once: the
     one-row kernel (``*_row_cuda``: one thread block holds a whole row,
     when ``row_fits(S, d)``: S <= 64, d <= 128) or the streaming kernel
-    (``*_stream_cuda``: any S); both count on the same launch counter;
+    (``*_stream_cuda``: any S; one block per row and owned tile of 64
+    queries, the keys streamed in tiles of 32 through two cp.async stages,
+    key tiles no query of the block can see skipped by value, register-
+    tiled products and an online softmax; two launches bitwise equal, and
+    at S <= 32 the bits of the one-row kernel); both count on the same
+    launch counter;
   * ``mosa_attention`` — dispatch.  A call that autograd must
     differentiate (grad enabled and any of q, k, v, r requiring grad) goes
     through the ``torch.autograd.Function`` of ``kernels.mosa_vjp``;

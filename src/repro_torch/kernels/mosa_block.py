@@ -24,8 +24,9 @@ identity and each function equals its token-choice counterpart
     ``csrc/mosa_attention.cu`` and ``csrc/mosa_backward.cu``, each with its
     launch counter.  #5 and #6 have two routes, as token choice's #1 and
     #2: the one-row kernel (``*_row_cuda``) when ``row_fits(S, d)`` and the
-    streaming kernel (``*_stream_cuda``) otherwise, counted on one counter
-    per kernel.  The backward has two routes, as token choice's has:
+    streaming kernel (``*_stream_cuda``: owned tiles of 64 queries, key
+    tiles of 32 skipped by value over the expanded positions) otherwise,
+    counted on one counter per kernel.  The backward has two routes, as token choice's has:
     ``mosa_block_attention_bwd_fused_cuda``, #7 and #8 fused into one
     launch (the block form of ``mosa_bwd_fused_kernel``) when a row's S =
     NB * bs selected tokens fit one tile (``fused_bwd_fits``: S <= 64,

@@ -44,7 +44,12 @@ route above S = 64) are held to the plain version and to themselves (two
 launches bitwise equal) at S 65, 128, 192 and 300, d 32 to 128, idx = -1
 keys anywhere, positions in no order (their tile skipping by value) and
 segments across tiles; the split #7 and #8 at NB * bs = 128, and at bs = 1
-bit for bit equal to the split #3 and #4.
+bit for bit equal to the split #3 and #4.  The streaming forward #1 and #2
+(the route above S = 64) is held the same way at S 65, 96, 128, 192 and
+300, d 32 to 128, sorted and unsorted idx, -1 keys, r = 0 rows and
+segments, and on a query tile whose every key tile is skipped (exact zeros
+and the plain lse); #5 and #6 at NB * bs = 128, and at bs = 1 and S 128
+bit for bit equal to the streaming #1 and #2.
 """
 
 import pytest
@@ -262,6 +267,83 @@ def test_mosa_forward_routes(dev, dtype, case):
     if case[2] <= 32:
         assert all(torch.equal(a, b)
                    for a, b in zip(outs["row"], outs["stream"]))
+
+
+# The streaming forward (#1, #2 above S = 64): S 65, 96, 128, 192 and 300
+# (ragged last key and query tiles), d 32, 64, 80 and 128, sorted and
+# unsorted idx, idx = -1 keys anywhere, r = 0 rows and segments whose
+# boundaries fall inside tiles.  (B, H, S, d, T, neg_keys, zero_rows,
+# with_seg, unsorted)
+STREAM_CASES = [(1, 3, 65, 128, 300, 4, 3, True, False),
+                (2, 3, 96, 32, 500, 5, 2, True, True),
+                (2, 3, 128, 64, 1024, 6, 3, True, False),
+                (2, 3, 128, 64, 1024, 6, 3, True, True),
+                (1, 2, 192, 32, 500, 5, 0, False, True),
+                (1, 2, 192, 80, 500, 5, 2, True, False),
+                (1, 2, 300, 80, 700, 7, 2, True, False),
+                (1, 2, 300, 128, 700, 7, 0, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_streaming_forward_matches_plain_and_is_deterministic(dev, dtype,
+                                                              case):
+    """The streaming #1 and #2 against their plain versions; two launches
+    equal bit for bit (no atomics, each element summed in a fixed order);
+    the routed calls take the streaming kernel (one count each) and give
+    its bits."""
+    from repro_torch.kernels import mosa_attention as km
+    q, k, v, idx, r, seg, _ = _train_inputs(dev, *case)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    got, again = (km.mosa_attention_stream_cuda(q, k, v, idx, r, seg=seg)
+                  for _ in range(2))
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), km.mosa_attention_ref(qf, kf, vf, idx, r, seg=seg),
+        **tol)
+    res, res2 = (km.mosa_attention_fwd_res_stream_cuda(q, k, v, idx,
+                                                       seg=seg)
+                 for _ in range(2))
+    want = km.mosa_attention_fwd_res_ref(qf, kf, vf, idx, seg=seg)
+    for a, a2, b in zip(res, res2, want):
+        assert a.dtype == torch.float32 and torch.equal(a, a2)
+        torch.testing.assert_close(a, b, **tol)
+    before = (km.LAUNCHES.count, km.LAUNCHES_FWD_RES.count)
+    assert torch.equal(km.mosa_attention_cuda(q, k, v, idx, r, seg=seg), got)
+    assert all(torch.equal(a, b) for a, b in zip(
+        km.mosa_attention_fwd_res_cuda(q, k, v, idx, seg=seg), res))
+    assert (km.LAUNCHES.count, km.LAUNCHES_FWD_RES.count) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_forward_query_tile_with_no_key_tile(dev, dtype):
+    """A query tile whose every key tile is skipped (all its rows idx = -1,
+    so no key can lie at or before them): zeros, and the plain version's
+    lse (-1e30 + log(1e-30)), exactly; the other rows as the plain
+    version."""
+    from repro_torch.kernels import mosa_attention as km
+    q, k, v, idx, r, seg, _ = _train_inputs(dev, 2, 3, 128, 64, 1024, 0,
+                                            0, True)
+    idx[0, 1, 64:] = -1
+    idx[1, 2, 70:] = -1
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tol = dict(atol=_tol(dtype), rtol=_tol(dtype))
+    got = km.mosa_attention_stream_cuda(q, k, v, idx, r, seg=seg)
+    o_pre, lse = km.mosa_attention_fwd_res_stream_cuda(q, k, v, idx, seg=seg)
+    want = km.mosa_attention_ref(qf, kf, vf, idx, r, seg=seg)
+    want_o, want_lse = km.mosa_attention_fwd_res_ref(qf, kf, vf, idx,
+                                                     seg=seg)
+    for out in (got, o_pre):
+        assert (out[0, 1, 64:] == 0).all() and (out[1, 2, 70:] == 0).all()
+    assert torch.equal(lse[0, 1, 64:], want_lse[0, 1, 64:])
+    assert torch.equal(lse[1, 2, 70:], want_lse[1, 2, 70:])
+    torch.testing.assert_close(got.float(), want, **tol)
+    torch.testing.assert_close(o_pre, want_o, **tol)
+    torch.testing.assert_close(lse, want_lse, **tol)
 
 
 def _bwd_inputs(dev, dtype, case):
@@ -555,7 +637,8 @@ def test_scheduler_card_matches_cpu(dev):
 # of 4), bs 1 and rows whose blocks past the first are all empty; bs 64
 # (S = 128), wider than the split kernels' 32-key tile; the forward's route
 # boundary at d = 128: S = 64 with rows of block 0 alone (one-row) and
-# S = 65 as 5 blocks of 13 (streaming).
+# S = 65 as 5 blocks of 13 (streaming); NB * bs = 128 as 8 blocks of 16
+# (the streaming forward over four key tiles, the split backward).
 BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
                (2, 3, 9, 4, 64, 101, 6, True),
                (2, 3, 5, 8, 32, 77, 3, True),
@@ -566,7 +649,8 @@ BLOCK_CASES = [(8, 276, 2, 16, 64, 1024, 0, False),
                (2, 3, 4, 8, 64, 90, 0, False, 3),
                (1, 2, 2, 64, 64, 150, 0, True),
                (1, 3, 4, 16, 128, 300, 0, False, 2),
-               (1, 2, 5, 13, 128, 100, 1, False)]
+               (1, 2, 5, 13, 128, 100, 1, False),
+               (1, 3, 8, 16, 64, 1000, 2, True)]
 
 
 def _block_route(NB, bs, d):
@@ -798,6 +882,30 @@ def test_block_kernels_at_bs1_equal_token_kernels(dev):
         got = blk(q, k, v, idx, 1, T, seg=seg)
         want = tok(q, k, v, idx, seg=seg)
         assert all(torch.equal(a, b) for a, b in zip(got, want)), route
+
+
+def test_block_stream_at_bs1_equals_token_stream_at_128(dev):
+    """At bs = 1 and S = 128 (four key tiles) the streaming #5 and #6 expand
+    the same positions and run the same float operations as the streaming
+    #1 and #2 (segments, -1 keys sorted last as the block layer keeps
+    them): bit for bit equal in fp32 and bf16."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_block as kb
+    case = STREAM_CASES[2]
+    q, k, v, idx, r, seg, _ = _train_inputs(dev, *case)
+    idx = torch.where(idx < 0, 2 ** 31 - 1, idx).sort(-1).values
+    idx = torch.where(idx == 2 ** 31 - 1, -1, idx).to(torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        assert torch.equal(
+            kb.mosa_block_attention_stream_cuda(qq, kk, vv, idx, r, 1,
+                                                case[4], seg=seg),
+            km.mosa_attention_stream_cuda(qq, kk, vv, idx, r, seg=seg)), dtype
+        got = kb.mosa_block_attention_fwd_res_stream_cuda(qq, kk, vv, idx, 1,
+                                                          case[4], seg=seg)
+        want = km.mosa_attention_fwd_res_stream_cuda(qq, kk, vv, idx,
+                                                     seg=seg)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), dtype
 
 
 def test_fused_block_bwd_at_bs1_equals_fused_token_bwd(dev):

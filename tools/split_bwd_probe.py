@@ -5,8 +5,9 @@ Run from the root of a checkout, on one NVIDIA GPU:
 
     python3 tools/split_bwd_probe.py
 
-It builds variants of ``src/repro_torch/csrc/mosa_backward.cu`` (each with
-the port's build, ``kernels/build.py``, into its own library):
+It builds variants of ``src/repro_torch/csrc/mosa_backward.cu`` and
+``mosa_tiles.cuh`` (each with the port's build, ``kernels/build.py``, into
+its own library):
 
   * ``kernel``        -- the source as it is;
   * ``no phase A``    -- S and dP are not computed (zeros): the time
@@ -50,7 +51,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "split_bwd_probe"
 sys.path.insert(0, str(ROOT / "src"))
 
-# (variant, [(text in mosa_backward.cu, its replacement), ...])
+# (part, [(text in a source, its replacement), ...])
 ZERO_SD = ("for (int r = 0; r < 4; ++r) for (int m = 0; m < 4; ++m) "
            "sc[r][m] = dp[r][m] = 0.f;")
 PARTS = {
@@ -70,8 +71,8 @@ PARTS = {
         ("    stage_rows(st.q, L.dsT,", "    if (false) stage_rows(st.q, L.dsT,"),
         ("    stage_rows(st.g, L.dsF,", "    if (false) stage_rows(st.g, L.dsF,")],
     "skipping": [
-        ("if (lane == 0) need[t] = kDQ ? spans_meet(own, sp) : "
-         "spans_meet(sp, own);", "if (lane == 0) need[t] = 1;")],
+        ("      need[t] = kQueries ? spans_meet(own, sp) : "
+         "spans_meet(sp, own);", "      need[t] = 1;")],
     "P/dS math": [
         ("        dst[(pa.j0 + kSG * m) * L.ps + i] = ok ? p * (ev - delta_i) "
          ": 0.f;", "        dst[(pa.j0 + kSG * m) * L.ps + i] = 0.f;"),
@@ -125,6 +126,33 @@ def time_ms(torch, fn, flush, iters=20):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def build_variants(build, variants, parts, out):
+    """{"kernel": the library as it is, variant: its library}: each variant
+    is a copy of ``build.CSRC`` under ``out`` with its parts' replacements
+    made (each text must occur in some source), built with the port's own
+    build.  Leaves ``build`` pointing at the last variant."""
+    libs = {"kernel": build.library()}
+    src = build.CSRC
+    for name, names in variants.items():
+        tag = "".join(c if c.isalnum() else "_" for c in name)
+        vdir = out / ("csrc_" + tag)
+        if vdir.exists():
+            shutil.rmtree(vdir)
+        shutil.copytree(src, vdir)
+        files = {f: f.read_text() for f in vdir.iterdir()}
+        for old, new in (r for part in names for r in parts[part]):
+            hits = [f for f, text in files.items() if old in text]
+            if not hits:
+                sys.exit(f"{name}: {old!r} is in no source")
+            for f in hits:
+                files[f] = files[f].replace(old, new)
+        for f, text in files.items():
+            f.write_text(text)
+        build.CSRC, build.BUILD_ROOT, build._LIBRARY = vdir, out / tag, None
+        libs[name] = build.library()
+    return libs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -133,25 +161,7 @@ def main():
     from repro_torch.kernels import mosa_backward as kb
     from repro_torch.kernels.mosa_attention import mosa_attention_fwd_res_ref
 
-    libs = {"kernel": build.library()}
-    src = build.CSRC
-    for name, parts in VARIANTS.items():
-        reps = [r for part in parts for r in PARTS[part]]
-        tag = "".join(c if c.isalnum() else "_" for c in name)
-        vdir = OUT / ("csrc_" + tag)
-        if vdir.exists():
-            shutil.rmtree(vdir)
-        shutil.copytree(src, vdir)
-        f = vdir / "mosa_backward.cu"
-        text = f.read_text()
-        for old, new in reps:
-            if old not in text:
-                sys.exit(f"split_bwd_probe.py: {name}: {old!r} not in "
-                         "mosa_backward.cu")
-            text = text.replace(old, new)
-        f.write_text(text)
-        build.CSRC, build.BUILD_ROOT, build._LIBRARY = vdir, OUT / tag, None
-        libs[name] = build.library()
+    libs = build_variants(build, VARIANTS, PARTS, OUT)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
