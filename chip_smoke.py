@@ -153,12 +153,46 @@ Phases (any failure raises, so the script exits nonzero):
      by name (mosa8's streaming forward named on its own line);
  25. the card against the CPU for ``fixed32`` and ``routing32`` at full
      width and the same weights, as phase 9 (routing: identical cluster
-     selections in every layer first), under deterministic algorithms.
+     selections in every layer first), under deterministic algorithms;
+ 26. the window pool of the Scheduler at full width: the JAX package's
+     acceptance stack for it (dense, window and MoSA layers: (attn,
+     attn_local, mosa) x 2 at the slice's widths, W 256) served like phase
+     11 with a window pool of every row's whole ring (8 x 16 blocks):
+     every request gets its max_new, every dense block returns but the
+     trie's and every window block returns; launches of paged decode = 4
+     (the paged dense layers: 2 attn, 2 MoSA dense sides) x decode steps,
+     of packed prefill = 4 x prefill chunks, of every other kernel 0 (the
+     ring's prefill and decode are plain PyTorch); the share of the wall
+     spent pausing mid-prefill rows;
+ 27. that stack preempted as phase 12 (every block of both pools back)
+     and on the card against the CPU as phase 13 (the 320-token prompt
+     wraps the ring): identical tokens and stats;
+ 28. ``RequestPool`` (the non-paged fallback) over the slice's model:
+     batch 8, max_len 1152, 24 seeded prompts of 100-1000 tokens (pow2
+     buckets), 32 tokens each: every request complete, exactly 6 x 24
+     launches of #1 (``prefill_one``) and 0 of every other kernel; then the
+     pool on the card and the CPU (batch 2, 4 requests): identical tokens;
+     28b: ``generate_stepwise`` at phase 5's shapes: its tokens equal
+     ``generate``'s (both under deterministic algorithms), exactly 6
+     launches of #1 and 6 x 127 of paged decode;
+ 29. phase 8's training under the remat policies ``none``, ``full``,
+     ``mosa`` and ``dots_saveable``: exact launches (144 of the training
+     forward under ``none``, 288 under the others: forward and recompute;
+     144 of the fused backward), peak device memory and median step, one
+     microbatch's own peak memory and its wall and device time under
+     ``torch.profiler``; then
+     under deterministic algorithms one 1 x 256 loss and backward per
+     policy: the loss bitwise ``none``'s, every grad within 1e-6 of its
+     tensor's max |grad|, ``mosa`` keeping exactly the 2 tagged tensors
+     per layer and ``dots_saveable`` only matrix products.  Gate: ``full``
+     and ``mosa`` below ``none`` in peak memory.
 
-Phases 3 and 4 hold and time #9 and #10 too.  The last nine lines are the
-``serve`` JSON, the ``train`` JSON, the ``sched`` JSON, the ``block``
-JSON, the ``window`` JSON, the ``sweep`` JSON, the ``kernels`` JSON, the
-``nvidia-smi`` name and power limit, and the result JSON.
+Phases 3 and 4 hold and time #9 and #10 too.  The last eleven lines are
+the ``serve`` JSON, the ``train`` JSON, the ``sched`` JSON (phases 26 and
+27 under ``window``), the ``block`` JSON, the ``window`` JSON, the
+``sweep`` JSON, the ``pool`` JSON (28, 28b), the ``remat`` JSON (29), the
+``kernels`` JSON, the ``nvidia-smi`` name and power limit, and the result
+JSON.
 """
 
 from __future__ import annotations
@@ -1623,16 +1657,17 @@ def cross_check(torch, server, cfg, prompts, P=256, paged=True):
 TRAIN_STEPS = 4             # the first is untimed
 
 
-def train_slice(torch, **mosa):
-    """Full-width training through ``Trainer``: the counters are zeroed
-    once the untimed first step has returned, and read after the last.
-    ``mosa`` overrides the MoSA config (block choice)."""
+def train_slice(torch, remat="none", **mosa):
+    """Full-width training through ``Trainer`` under the remat policy
+    ``remat``: the counters are zeroed once the untimed first step has
+    returned, and read after the last.  ``mosa`` overrides the MoSA config
+    (block choice)."""
     from repro_torch.train.loop import TrainConfig, Trainer
     cfg = TrainConfig(arch="mosa-paper", preset="full",
                       arch_kwargs={"variant": "mosa", **mosa}, seq_len=1024,
                       global_batch=64, microbatch=8, lr=2.5e-4,
                       clip_norm=0.25, steps=TRAIN_STEPS, mosa_impl="kernel",
-                      remat="none", log_every=1, seed=0)
+                      remat=remat, log_every=1, seed=0)
     trainer = Trainer(cfg)
     mc = trainer.model_cfg
     n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -1662,11 +1697,13 @@ def train_slice(torch, **mosa):
 
     timed = TRAIN_STEPS - 1
     per_layer = mc.n_layers * cfg.microbatch * timed
-    # S = k = 32 (token choice) or 2 blocks of 16: the fused backward
+    # S = k = 32 (token choice) or 2 blocks of 16: the fused backward; a
+    # remat policy runs the training forward again in the backward
     names = (("mosa_block_attention_fwd_res", "mosa_block_attention_bwd")
              if mc.mosa.selection_granularity == "block"
              else ("mosa_attention_fwd_res", "mosa_attention_bwd"))
-    want = want_launches(**{name: per_layer for name in names})
+    want = want_launches(**{names[0]: per_layer * (1 + (remat != "none")),
+                            names[1]: per_layer})
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     losses = [h["loss"] for h in history]
@@ -1951,20 +1988,26 @@ def report_chunk_profile(torch, name, prof, wall_ms):
     return res
 
 
-def sched_slice(torch):
-    """[11]: the timed full-width Scheduler run, after a warm pass."""
+def sched_slice(torch, cfg=None, window_blocks=0):
+    """[11] and [26]: the timed full-width Scheduler run of ``cfg``
+    (default the slice's model), after a warm pass; ``window_blocks``: the
+    window pool of a model with window layers.  Paged kernels: one launch
+    per paged dense layer (cache) and decode step or prefill chunk."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.launch.serve import Server
-    from repro_torch.serve.paged_kv import PagedConfig
-    from repro_torch.serve.scheduler import Scheduler
-    cfg = slice_config()
+    from repro_torch.serve.paged_kv import PagedConfig, PagedDenseKVCache
+    from repro_torch.serve.scheduler import Scheduler, _cache_leaves
+    cfg = cfg or slice_config()
     server = Server(cfg, batch=8, max_len=SCHED_MAX_LEN,
                     paged=PagedConfig(block_size=SCHED_BS,
-                                      num_blocks=SCHED_BLOCKS), seed=0)
+                                      num_blocks=SCHED_BLOCKS,
+                                      num_window_blocks=window_blocks),
+                    seed=0)
     kw = dict(chunk=8, chunk_tokens=256, max_prefill_segs=4)
     log(f"  Server(batch 8, max_len {SCHED_MAX_LEN}, {SCHED_BLOCKS} blocks "
-        f"of {SCHED_BS}); Scheduler({kw}, prefix_cache=True)")
+        f"of {SCHED_BS}, {window_blocks} window blocks); Scheduler({kw}, "
+        f"prefix_cache=True)")
 
     # warm pass on a Scheduler of its own; its 2nd prefill chunk and 2nd
     # decode chunk are replayed under the profiler
@@ -2012,9 +2055,15 @@ def sched_slice(torch):
         raise AssertionError(f"blocks leaked: {pool.free_blocks} free + "
                              f"{sched.prefix.n_nodes} trie nodes != "
                              f"{pool.num_blocks}")
+    wpool = sched.window_pool
+    if wpool is not None and wpool.free_blocks != wpool.num_blocks:
+        raise AssertionError(f"window blocks leaked: {wpool.free_blocks} "
+                             f"free of {wpool.num_blocks}")
+    n_paged = sum(isinstance(x, PagedDenseKVCache)
+                  for x in _cache_leaves(sched.caches))
     want = want_launches(
-        paged_attention_decode=cfg.n_layers * decode_steps,
-        paged_prefill_attention=cfg.n_layers * st["prefill_chunks"])
+        paged_attention_decode=n_paged * decode_steps,
+        paged_prefill_attention=n_paged * st["prefill_chunks"])
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if st["prefix_hits"] < 1:
@@ -2030,6 +2079,7 @@ def sched_slice(torch):
     counts = snap["counters"]
 
     ttft = obs.registry().histogram("serve.ttft_s").percentiles()
+    pause_s = obs.registry().histogram("serve.pause_s").sum
     gen_tokens = sum(m for _, m in reqs)
     res = dict(wall_s=wall, requests=len(reqs), req_s=len(reqs) / wall,
                generated_tokens=gen_tokens, gen_tok_s=gen_tokens / wall,
@@ -2039,6 +2089,8 @@ def sched_slice(torch):
                decode_chunk_ms=1e3 * dec_s / n_dec,
                prefill_chunks_s=pre_s, decode_chunks_s=dec_s,
                other_s=wall - pre_s - dec_s, decode_chunks=n_dec,
+               pause_s=pause_s, pause_share=pause_s / wall,
+               paged_dense_layers=n_paged,
                pauses=int(counts.get("serve.pauses", 0)),
                resumes=int(counts.get("serve.resumes", 0)),
                decode_steps=decode_steps, stats=st,
@@ -2055,7 +2107,8 @@ def sched_slice(torch):
         f"decode steps)")
     log(f"  wall: prefill chunks {pre_s:.2f} s, decode chunks {dec_s:.2f} s, "
         f"the rest (admission, pauses/resumes, prefix inserts, sampling) "
-        f"{res['other_s']:.2f} s; {res['pauses']} pauses, {res['resumes']} "
+        f"{res['other_s']:.2f} s; {res['pauses']} pauses ({pause_s:.2f} "
+        f"s, {res['pause_share']:.3f} of the wall), {res['resumes']} "
         f"resumes")
     log(f"  stats {st}; packed efficiency {res['packed_efficiency']:.3f}; "
         f"peak device memory {res['peak_gib']:.3f} GiB")
@@ -2064,15 +2117,17 @@ def sched_slice(torch):
 
 
 def preempt_slice(torch, server):
-    """[12]: 6 prompts of 1008 tokens (63 blocks), max_new 64, on 127
-    blocks: two rows fit, and the first decode growth past a block
-    boundary runs the pool dry."""
+    """[12] and [27]: 6 prompts of 1008 tokens (63 blocks), max_new 64, on
+    127 blocks (and ``server``'s window pool): two rows fit, and the first
+    decode growth past a block boundary runs the pool dry."""
     import numpy as np
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
     from repro_torch.serve.scheduler import Scheduler
     tight = Server(server.model_cfg, batch=8, max_len=SCHED_MAX_LEN,
-                   paged=PagedConfig(block_size=SCHED_BS, num_blocks=127),
+                   paged=PagedConfig(
+                       block_size=SCHED_BS, num_blocks=127,
+                       num_window_blocks=server.paged.num_window_blocks),
                    params=server.model.state_dict())
     sched = Scheduler(tight, chunk=8, chunk_tokens=256, max_prefill_segs=4,
                       prefix_cache=False)
@@ -2089,16 +2144,18 @@ def preempt_slice(torch, server):
         raise AssertionError(f"no preemption: {st}")
     if [len(out[r]) for r in rids] != [64] * 6:
         raise AssertionError(f"lengths {[len(out[r]) for r in rids]}")
-    if sched.dense_pool.free_blocks != sched.dense_pool.num_blocks:
-        raise AssertionError("blocks leaked after preemption")
+    for pool in (sched.dense_pool, sched.window_pool):
+        if pool is not None and pool.free_blocks != pool.num_blocks:
+            raise AssertionError(f"{pool.name} blocks leaked after "
+                                 "preemption")
     log(f"  6 x 1008-token prompts, 64 tokens each, on 127 blocks: "
         f"{wall:.2f} s, stats {st}; every block back")
     return dict(wall_s=wall, stats=st)
 
 
 def sched_cross_check(torch, server):
-    """[13] and [19]: the Scheduler on the card and on the CPU, the weights
-    and config of ``server``."""
+    """[13], [19] and [27]: the Scheduler on the card and on the CPU, the
+    weights and config of ``server``."""
     import numpy as np
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
@@ -2111,7 +2168,11 @@ def sched_cross_check(torch, server):
                np.concatenate([shared, rng.integers(2, cfg.vocab, 150)]),
                rng.integers(2, cfg.vocab, 320)]
     max_len = 336
-    paged = PagedConfig(block_size=SCHED_BS, num_blocks=2 * max_len // 16)
+    # a window model's rings: two rows' worth (the 320-token prompt wraps)
+    window_blocks = 2 * WINDOW // SCHED_BS if server.paged.num_window_blocks \
+        else 0
+    paged = PagedConfig(block_size=SCHED_BS, num_blocks=2 * max_len // 16,
+                        num_window_blocks=window_blocks)
     state = {k: v.detach().cpu() for k, v in server.model.state_dict().items()}
     out = {}
     for name, dev in (("gpu", None), ("cpu", "cpu")):
@@ -2803,6 +2864,332 @@ def sweep_cross_check(torch, variant, sparsity):
     return res
 
 
+# ------------------------------------- the window Scheduler ([26], [27])
+WINDOW_SCHED_BLOCKS = 8 * WINDOW // SCHED_BS    # every row's whole ring
+
+
+def window_stack_config():
+    """[26]'s model: the JAX package's acceptance stack for the window pool
+    (``hybrid_cfg`` of ``tests/test_paged_serving.py``: dense, window and
+    MoSA layers in one stack) at the slice's widths: (attn, attn_local,
+    mosa) x 2, the attention layers 9 heads of d 64, ``attn_local`` a ring
+    of W 256, the MoSA layers 276 + 4 heads at sparsity 32, kernel path."""
+    from repro_torch.configs.base import BlockSpec
+    cfg = slice_config()
+    unit = tuple(BlockSpec(m, "dense") for m in ("attn", "attn_local", "mosa"))
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-window-stack",
+        attention=dataclasses.replace(cfg.attention, window=WINDOW),
+        pattern=unit * (cfg.n_layers // 3))
+
+
+def window_sched_slice(torch):
+    """[26] and [27]: the window stack through the Scheduler at full width
+    (dense pool as [11], a window pool of every row's whole ring), then
+    preemption on a dense pool of 127 blocks, then the card against the
+    CPU at [13]'s shapes (the 320-token prompt wraps the ring)."""
+    cfg = window_stack_config()
+    log(f"  {cfg.name}: {[s.mixer for s in cfg.pattern]}, attention "
+        f"{cfg.attention.n_heads} heads of d {cfg.attention.d_head}, window "
+        f"{cfg.attention.window}; MoSA {cfg.mosa.n_mosa_heads} + "
+        f"{cfg.mosa.n_dense_heads} heads at sparsity {cfg.mosa.sparsity}")
+    server, res = sched_slice(torch, cfg, WINDOW_SCHED_BLOCKS)
+    log("[27] window stack: preemption, then card vs CPU")
+    res["preempt"] = preempt_slice(torch, server)
+    res["cross_check"] = sched_cross_check(torch, server)
+    del server
+    return res
+
+
+# ------------------------------ the non-paged fallbacks ([28], [28b])
+POOL_REQUESTS, POOL_MAX_NEW = 24, 32
+
+
+def pool_requests(vocab, n, lo, hi, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, vocab, int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def request_pool_slice(torch):
+    """[28]: ``RequestPool`` over the slice's model on a non-paged
+    ``Server`` (batch 8, max_len 1152, decode chunks of 8): 24 seeded
+    prompts of 100-1000 tokens (pow2 buckets 128-1024), 32 greedy tokens
+    each, after a warm pass of two requests.  Exact: every request gets
+    its 32 tokens; one MoSA prefill kernel (#1) per layer and admission
+    (``prefill_one``), no other kernel (contiguous caches: the decode is
+    plain PyTorch).  Then the pool on the card and the CPU (batch 2, 4
+    requests of 70-300 tokens, 8 tokens each, deterministic algorithms):
+    identical tokens."""
+    from repro_torch.launch.serve import RequestPool, Server
+    cfg = slice_config()
+    server = Server(cfg, batch=8, max_len=SCHED_MAX_LEN, seed=0)
+    warm = RequestPool(server, chunk=8)
+    for p in pool_requests(cfg.vocab, 2, 100, 300, seed=8):
+        warm.submit(p, 8)
+    warm.run()
+    prompts = pool_requests(cfg.vocab, POOL_REQUESTS, 100, 1000, seed=6)
+    pool = RequestPool(server, chunk=8)
+    rids = [pool.submit(p, POOL_MAX_NEW) for p in prompts]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pool.run(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    if [len(out[r]) for r in rids] != [POOL_MAX_NEW] * len(rids):
+        raise AssertionError(f"lengths {[len(out[r]) for r in rids]}")
+    want = want_launches(mosa_attention=cfg.n_layers * len(rids))
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    gen = POOL_MAX_NEW * len(rids)
+    res = dict(wall_s=wall, requests=len(rids), generated_tokens=gen,
+               gen_tok_s=gen / wall, req_s=len(rids) / wall,
+               prompt_tokens=int(sum(len(p) for p in prompts)),
+               launches=launches)
+    log(f"  {len(rids)} requests ({res['prompt_tokens']} prompt tokens, "
+        f"{gen} generated) in {wall:.2f} s: {res['req_s']:.2f} req/s, "
+        f"{res['gen_tok_s']:.1f} generated tok/s; launches {launches}")
+    del server
+
+    state = None
+    small = pool_requests(cfg.vocab, 4, 70, 300, seed=9)
+    toks = {}
+    with deterministic_algorithms(torch):
+        for name, dev in (("gpu", None), ("cpu", "cpu")):
+            srv = Server(cfg, batch=2, max_len=336, params=state, device=dev,
+                         seed=0)
+            if state is None:
+                state = {k: v.detach().cpu()
+                         for k, v in srv.model.state_dict().items()}
+            p2 = RequestPool(srv, chunk=8)
+            for p in small:
+                p2.submit(p, 8)
+            toks[name] = p2.run()
+            del srv
+    for rid in sorted(toks["cpu"]):
+        log(f"  request {rid} ({len(small[rid])} tokens): gpu "
+            f"{toks['gpu'][rid].tolist()} cpu {toks['cpu'][rid].tolist()}")
+    if any(not torch.equal(toks["gpu"][r], toks["cpu"][r])
+           for r in toks["cpu"]):
+        raise AssertionError("RequestPool tokens differ between card and "
+                             "CPU")
+    res["cross_check"] = "identical tokens"
+    return res
+
+
+def stepwise_slice(torch):
+    """[28b]: ``generate_stepwise`` (one decode step and one sample per
+    token) at [5]'s shapes (batch 8, prompt 1024, 128 tokens, paged) beside
+    ``generate`` on the same weights: identical tokens; exactly 6 launches
+    of #1 and 6 x 127 of paged decode (#11) over the stepwise call.  Both
+    run under ``deterministic_algorithms``: with ``index_add_``'s atomics
+    two calls of ``generate`` itself can differ by a near-tied token."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    cfg = slice_config()
+    B, P, G = 8, 1024, 128
+    server = Server(cfg, batch=B, max_len=SCHED_MAX_LEN,
+                    paged=PagedConfig(block_size=16), seed=0)
+    prompts = torch.randint(2, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _ = fn(prompts, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, toks
+
+    with deterministic_algorithms(torch):
+        timed(server.generate, 2)                      # warm-up
+        timed(server.generate_stepwise, 2)
+        gen_s, want = timed(server.generate, G)
+        counters = kernel_counters()
+        for c in counters.values():
+            c.count = 0
+        step_s, got = timed(server.generate_stepwise, G)
+        launches = {name: c.count for name, c in counters.items()}
+    exp = want_launches(mosa_attention=cfg.n_layers,
+                        paged_attention_decode=cfg.n_layers * (G - 1))
+    if launches != exp:
+        raise AssertionError(f"launch counts {launches} != {exp}")
+    if not torch.equal(got, want):
+        raise AssertionError("generate_stepwise tokens differ from "
+                             "generate's")
+    res = dict(stepwise_s=step_s, generate_s=gen_s,
+               stepwise_tok_s=B * G / step_s, generate_tok_s=B * G / gen_s,
+               launches=launches)
+    log(f"  batch {B} x prompt {P} + {G} tokens: generate_stepwise "
+        f"{step_s:.3f} s ({res['stepwise_tok_s']:.1f} tok/s), generate "
+        f"{gen_s:.3f} s ({res['generate_tok_s']:.1f} tok/s); identical "
+        f"tokens; launches {launches}")
+    del server
+    return res
+
+
+# ------------------------------------------------ remat policies ([29])
+REMAT_POLICIES = ("none", "full", "mosa", "dots_saveable")
+
+
+@contextlib.contextmanager
+def kept_by(policy):
+    """Record which ops' outputs the selective remat ``policy`` keeps in the
+    first forward (not the recompute): a list of (op, tag name)."""
+    from repro_torch.nn import remat as remat_lib
+    decide, kept = remat_lib.SELECTIVE[policy], []
+
+    def recording(ctx, op, *args, **kwargs):
+        out = decide(ctx, op, *args, **kwargs)
+        if out == remat_lib.CheckpointPolicy.MUST_SAVE and \
+                not ctx.is_recompute:
+            kept.append((str(op), args[-1] if op in remat_lib.TAG_OPS
+                         else None))
+        return out
+
+    remat_lib.SELECTIVE[policy] = recording
+    try:
+        yield kept
+    finally:
+        remat_lib.SELECTIVE[policy] = decide
+
+
+@contextlib.contextmanager
+def counted_ops():
+    """Count the aten ops that run inside the block, by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = {}
+
+    class Counting(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[str(func)] = counts.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Counting():
+        yield counts
+
+
+def microbatch_peak_gib(torch, trainer):
+    """Peak device memory of one training microbatch (8 x 1024: the loss,
+    its backward) above what is allocated before it (weights, optimizer
+    state): the activations a remat policy keeps, and the grads."""
+    model, cfg = trainer.model, trainer.cfg
+    mb = cfg.global_batch // cfg.microbatch
+    batch = trainer.device_batch({k: v[:mb] for k, v in
+                                  trainer.dataset.batch_at(0).items()})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = model.loss(batch, with_health=True)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del loss, grads
+    return peak / 2 ** 30
+
+
+def remat_slice(torch):
+    """[29]: [8]'s Trainer under each remat policy (4 steps, the first
+    untimed): exact launches (the training forward twice under every
+    policy but ``none``: forward and recompute), peak device memory over
+    the run, the median step; then one microbatch's own peak memory and,
+    under ``torch.profiler``, its wall and device time (as [10]).  Then,
+    under deterministic algorithms, one
+    1 x 256 loss and backward of one model per policy: the loss bitwise
+    ``none``'s, every grad within 1e-6 of its tensor's max |grad|; under
+    ``mosa`` exactly the two tagged tensors per layer kept and its
+    backward (the recompute) one gather (aten ``index``) per layer short
+    of ``full``'s, under ``dots_saveable`` only matrix products.  Gate:
+    ``full`` and ``mosa`` below ``none`` in peak memory."""
+    from repro_torch.data.pipeline import PackedLMDataset, SyntheticCorpus
+    from repro_torch.nn.transformer import TransformerLM
+    from repro_torch.train.step import with_remat
+    out = {}
+    for policy in REMAT_POLICIES:
+        log(f"  remat {policy}:")
+        trainer, res = train_slice(torch, remat=policy)
+        out[policy] = {k: res[k] for k in ("step_ms", "tokens_per_s",
+                                           "peak_gib", "step_ms_each",
+                                           "losses", "launches_total")}
+        out[policy]["microbatch_peak_gib"] = microbatch_peak_gib(torch,
+                                                                 trainer)
+        out[policy]["microbatch"] = profile_train(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+    peaks = {p: out[p]["peak_gib"] for p in REMAT_POLICIES}
+    log(f"  peak GiB over the run {peaks}; one microbatch's own peak GiB "
+        f"{ {p: round(out[p]['microbatch_peak_gib'], 3) for p in REMAT_POLICIES} }"
+        f"; step ms "
+        f"{ {p: round(out[p]['step_ms'], 1) for p in REMAT_POLICIES} }")
+    for p in ("full", "mosa"):
+        if not peaks[p] < peaks["none"]:
+            raise AssertionError(f"remat {p} peak {peaks[p]:.3f} GiB is not "
+                                 f"below none's {peaks['none']:.3f}")
+
+    cfg = slice_config()
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        model = TransformerLM(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = PackedLMDataset(SyntheticCorpus(vocab=cfg.vocab, seed=1),
+                            seq_len=256, global_batch=1).batch_at(0)
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+    params = list(model.parameters())
+    names = [k for k, _ in model.named_parameters()]
+    ref, checks, gathers = None, {}, {}
+    with deterministic_algorithms(torch):
+        for policy in REMAT_POLICIES:
+            model.cfg = with_remat(cfg, policy)
+            with contextlib.ExitStack() as stack:
+                kept = (stack.enter_context(kept_by(policy))
+                        if policy in ("mosa", "dots_saveable") else None)
+                loss, _ = model.loss(batch)
+                with counted_ops() as ops:
+                    grads = torch.autograd.grad(loss, params)
+            gathers[policy] = ops.get("aten.index.Tensor", 0)
+            if ref is None:
+                ref = (loss.item(), grads)
+                continue
+            worst = max((((g - r).abs().max() / r.abs().max()).item(), k)
+                        for k, g, r in zip(names, grads, ref[1]))
+            checks[policy] = dict(loss=loss.item(), grad_rel=worst[0],
+                                  kept=len(kept) if kept is not None else 0)
+            log(f"  {policy}: loss {loss.item():.7f} (none "
+                f"{ref[0]:.7f}); worst grad {worst[0]:.2e} in {worst[1]}"
+                + (f"; kept {len(kept)} outputs of "
+                   f"{sorted({op for op, _ in kept})}" if kept else ""))
+            if loss.item() != ref[0]:
+                raise AssertionError(f"remat {policy}: loss {loss.item()} "
+                                     f"!= none's {ref[0]}")
+            if not worst[0] <= 1e-6:
+                raise AssertionError(f"remat {policy}: grad of {worst[1]} "
+                                     f"differs by {worst[0]:.2e}")
+            if policy == "mosa" and sorted(kept) != sorted(
+                    [("repro_torch.checkpoint_gather.default", "mosa_gather"),
+                     ("repro_torch.checkpoint_name.default", "mosa_router")]
+                    * cfg.n_layers):
+                raise AssertionError(f"remat mosa kept {kept}")
+            if policy == "mosa" and \
+                    gathers["mosa"] != gathers["full"] - cfg.n_layers:
+                raise AssertionError(f"remat mosa gathers in its backward "
+                                     f"{gathers['mosa']} times, full "
+                                     f"{gathers['full']}: the recompute "
+                                     f"should take the kept gathers")
+            if policy == "dots_saveable" and not {op for op, _ in kept} <= {
+                    "aten.mm.default", "aten.bmm.default",
+                    "aten.addmm.default", "aten.baddbmm.default"}:
+                raise AssertionError(f"remat dots_saveable kept {kept}")
+    log(f"  token gathers (aten index) in the backward: {gathers}")
+    out["cross_policy"] = checks
+    out["backward_gathers"] = gathers
+    del model
+    return out
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -2945,6 +3332,19 @@ def main():
     sweep["cross_check"] = {f"{v}{s}": sweep_cross_check(torch, v, s)
                             for v, s in (("fixed", 32), ("routing", 32),
                                          ("mosa", 8))}
+    log("[26] main path: the window stack through the Scheduler at full "
+        "width (window pool)")
+    sched["window"] = window_sched_slice(torch)
+
+    log("[28] main path: RequestPool (non-paged) at full width")
+    pool = request_pool_slice(torch)
+
+    log("[28b] main path: generate_stepwise at the slice's shapes")
+    pool["stepwise"] = stepwise_slice(torch)
+
+    log("[29] main path: training under each remat policy at full width")
+    remat = remat_slice(torch)
+
     sweep["kernel_cases"] = {
         name: {**times[name], "max_abs_err": errs[name]}
         for name in (f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]",
@@ -3020,6 +3420,8 @@ def main():
     print(json.dumps({"block": block}))
     print(json.dumps({"window": window}))
     print(json.dumps({"sweep": sweep}))
+    print(json.dumps({"pool": pool}))
+    print(json.dumps({"remat": remat}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

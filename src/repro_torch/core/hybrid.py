@@ -175,9 +175,18 @@ class HybridAttention(nn.Module):
                     batch, max_len, c.n_dense_heads, c.d_head, dtype, device)
         return caches
 
-    def prefill(self, x, caches, positions=None, valid=None):
+    def prefill(self, x, caches, positions=None, valid=None,
+                continued: bool = False):
+        """``continued``: the caches hold a restored prompt prefix
+        (prefix-cache hit); the sparse side extends it through the exact
+        union selection of ``MoSAAttention.prefill_past``, the dense side's
+        paged prefill is past-aware through its cache ``length`` alone."""
         self._serving()
-        y, sc = self.sparse.prefill(x, caches["sparse"], positions, valid)
+        if continued:
+            y, sc = self.sparse.prefill_past(x, caches["sparse"], valid)
+        else:
+            y, sc = self.sparse.prefill(x, caches["sparse"], positions,
+                                        valid)
         out = dict(caches, sparse=sc)
         yd = None
         if self.dense is not None:

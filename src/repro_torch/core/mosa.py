@@ -49,16 +49,11 @@ from repro_torch.core.router import (ExpertChoiceRouter, block_pool_scores,
 from repro_torch.kernels import mosa_attention as kmosa
 from repro_torch.kernels import mosa_block as kblock
 from repro_torch.nn.layers import param, trunc_normal_
+from repro_torch.nn.remat import checkpoint_gather, checkpoint_name
+from repro_torch.nn.remat import gather_tokens as _gather_tokens
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
-
-
-def _gather_tokens(x, idx):
-    """x: (B, T, ...) and idx: (B, H, k) -> (B, H, k, ...): row b's tokens
-    at idx[b] (the batch dimension written out where JAX vmaps)."""
-    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
-    return x[b, idx]
 
 
 def _gather_rows(t, rows):
@@ -169,7 +164,11 @@ class MoSAAttention(nn.Module):
             pos_sel = torch.gather(
                 positions[:, None].expand(B, idx.shape[1], T), -1, idx)
 
-        xs = _gather_tokens(x.to(cd), idx)                    # (B, H, k, h)
+        # Under remat "mosa" the gathered activations and the selected
+        # scores are kept: the recompute runs the router and its top-k
+        # again (for idx), but not the gather.
+        xs = checkpoint_gather(x.to(cd), idx, "mosa_gather")  # (B, H, k, h)
+        r = checkpoint_name(r, "mosa_router")
         q = self._rope(self._proj(xs, self.wq), pos_sel)
         kk = self._rope(self._proj(xs, self.wk), pos_sel)
         v = self._proj(xs, self.wv)
@@ -232,7 +231,8 @@ class MoSAAttention(nn.Module):
         pos_rope = posc if positions is None else torch.gather(
             positions[:, None].expand(B, H, T), -1, posc)
 
-        xs = _gather_tokens(x.to(cd), posc)                   # (B, H, S, h)
+        xs = checkpoint_gather(x.to(cd), posc, "mosa_gather")  # (B, H, S, h)
+        rblk = checkpoint_name(rblk, "mosa_router")
         q = self._rope(self._proj(xs, self.wq), pos_rope)
         kk = self._rope(self._proj(xs, self.wk), pos_rope)
         v = self._proj(xs, self.wv)

@@ -1,9 +1,11 @@
-"""Serving entry points (port of ``Server`` and the CLI of
+"""Serving entry points (port of ``Server``, ``RequestPool`` and the CLI of
 ``repro.launch.serve``).
 
 ``Server(cfg, ...)`` holds a ``TransformerLM`` on one device (the card by
 default) and serves whole batches: ``generate`` runs one prefill over the
-prompts and then ``gen_len - 1`` decode steps, greedy by default.  With
+prompts and then ``gen_len - 1`` decode steps, greedy by default;
+``generate_stepwise`` does the same with one ``decode_step`` and one sample
+per token (the per-token baseline of the chunked decoder).  With
 ``paged=PagedConfig(...)`` the dense heads keep their KV in block-paged
 pools (window rings in ``PagedWindowKVCache`` pools for sliding-window
 heads); the MoSA heads keep their O(k) streaming cache.  Auto-sized pools
@@ -11,7 +13,13 @@ heads); the MoSA heads keep their O(k) streaming cache.  Auto-sized pools
 explicit budget leaves the tables unallocated for
 ``repro_torch.serve.scheduler.Scheduler``, which drives the per-row ops:
 ``prefill_packed`` (packed chunked prefill), ``decode_many``,
-``snapshot_row`` / ``restore_row`` and ``grow_tables``.
+``snapshot_row`` / ``restore_row``, ``grow_tables`` and
+``grow_window_tables``.
+
+``RequestPool`` is the non-paged fallback: continuous batching over fixed
+slots of one contiguous batched cache, refilled between decode chunks by a
+batch-1 masked prefill (``prefill_one``) written into the freed row
+(``write_slot``).
 
 The caches are written IN PLACE and every cache op runs under
 ``torch.inference_mode()`` (a tensor made there refuses in-place writes
@@ -20,7 +28,7 @@ caches.
 
 CLI (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \\
-      --variant mosa --batch 4 --prompt-len 32 --gen 16
+      --variant mosa --batch 4 --prompt-len 32 --gen 16 [--stepwise]
   PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \\
       --variant mosa --load-rate 4 --load-n 16
 """
@@ -28,6 +36,7 @@ CLI (the card unless ``--device cpu``):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional
@@ -36,9 +45,14 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.kv_cache import MoSABlockKVCache, MoSAKVCache
 from repro_torch.nn.transformer import TransformerLM, sample_logits
-from repro_torch.serve.paged_kv import PagedConfig, PagedDenseKVCache
+from repro_torch.serve.paged_kv import (PagedConfig, PagedDenseKVCache,
+                                        PagedWindowKVCache)
+
+PAGED_CACHE_TYPES = (PagedDenseKVCache, PagedWindowKVCache)
+# The fields of a paged cache shared by every row (behind block ids); the
+# block table, positions and length are per row.
+POOL_FIELDS = frozenset({"k", "v"})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,12 +67,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ---------------------------------------------------- batch-row cache ops
-# The caches are a list with one entry per layer: a ``PagedDenseKVCache``
+# The caches are a list with one entry per layer: a cache NamedTuple
 # (attention layers) or a dict {"sparse": MoSAKVCache or MoSABlockKVCache,
-# "dense": PagedDenseKVCache} (MoSA hybrid layers).  The row ops raise for
-# window rings (their Scheduler support is not ported yet).  The pools of a paged
-# cache are shared by every row and stay behind block ids; its block table
-# and length are per row.  A MoSA cache is per row in every field.
+# "dense": a dense or window cache} (MoSA hybrid layers).  Every field of a
+# contiguous or MoSA cache is per row; the pools of a paged cache
+# (``POOL_FIELDS``) are shared by every row and stay behind block ids.
 
 def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
@@ -74,18 +87,82 @@ def _map_layers(fn, caches, *others):
     return [one(c, *o) for c, *o in zip(caches, *others)]
 
 
+def _row_fields(c):
+    """(name, tensor) of the per-row fields of cache ``c``."""
+    paged = isinstance(c, PAGED_CACHE_TYPES)
+    return [(name, f) for name, f in zip(c._fields, c)
+            if not (paged and name in POOL_FIELDS)]
+
+
+def row_slice(caches, b: int):
+    """A batch-of-1 view of row ``b``: row fields sliced (views), pools
+    shared, so the in-place appends of ``model.prefill`` on the view write
+    through to the batched caches; ``row_write`` stores what the prefill
+    returns anew (lengths, MoSA caches)."""
+    def one(c):
+        rows = dict(_row_fields(c))
+        return type(c)(*(f[b:b + 1] if name in rows else f
+                         for name, f in zip(c._fields, c)))
+    return _map_layers(one, caches)
+
+
+def row_write(caches, row, b: int):
+    """Write a batch-of-1 row (a ``row_slice`` view after a prefill, or a
+    separate batch-1 cache) into row ``b`` in place; returns ``caches``.
+    Paged pools are not copied: a row view's writes already landed in
+    them."""
+    def one(dst, src):
+        for (_, d), (_, s) in zip(_row_fields(dst), _row_fields(src)):
+            d[b:b + 1] = s.to(d.device, d.dtype)
+        return dst
+    _map_layers(one, caches, row)
+    return caches
+
+
+def _snap_window(c: PagedWindowKVCache, b: int) -> dict:
+    """Row ``b`` of a window ring: its table, positions and length, and —
+    since ring blocks are written in place and never shared — the ring's
+    content gathered in the ring layout (W, Hkv, d), bounded by W."""
+    bt = c.block_table[b].long().clamp(min=0)
+    rest = c.k.shape[2:]
+    return {"block_table": _host(c.block_table[b]),
+            "k": _host(c.k[bt].reshape(c.window, *rest)),
+            "v": _host(c.v[bt].reshape(c.window, *rest)),
+            "positions": _host(c.positions[b]), "length": _host(c.length[b])}
+
+
+def _restore_window(c: PagedWindowKVCache, s: dict, b: int) -> None:
+    """Inverse of ``_snap_window`` at row ``b``: the ring content is
+    scattered into the blocks of ``s["block_table"]`` (the caller may have
+    rewritten it to fresh block ids); slots behind a -1 entry are
+    dropped."""
+    table = torch.as_tensor(s["block_table"]).to("cpu", torch.long)
+    bs = c.block_size
+    slots = torch.arange(c.window)
+    blk = table[slots // bs]
+    keep = blk >= 0
+    if bool(keep.any()):
+        dev = c.k.device
+        blk, off = blk[keep].to(dev), (slots % bs)[keep].to(dev)
+        c.k[blk, off] = torch.as_tensor(s["k"])[keep].to(dev, c.k.dtype)
+        c.v[blk, off] = torch.as_tensor(s["v"])[keep].to(dev, c.v.dtype)
+    for name in ("block_table", "positions", "length"):
+        f = getattr(c, name)
+        f[b] = torch.as_tensor(s[name]).to(f.device, f.dtype)
+
+
 def row_snapshot(caches, b: int):
     """Host-restorable state of row ``b``: the paged caches' block table and
-    length, and the whole row of every MoSA cache (bounded by its k).  The
-    dense KV itself stays behind block ids."""
+    length (and a window ring's content and positions), and the whole row
+    of every other cache (bounded by its k, or by W).  The dense paged KV
+    itself stays behind block ids."""
     def one(c):
         if isinstance(c, PagedDenseKVCache):
             return {"block_table": _host(c.block_table[b]),
                     "length": _host(c.length[b])}
-        if isinstance(c, (MoSAKVCache, MoSABlockKVCache)):
-            return type(c)(*(_host(f[b:b + 1]) for f in c))
-        raise NotImplementedError(f"row ops of {type(c).__name__} are not "
-                                  "ported")
+        if isinstance(c, PagedWindowKVCache):
+            return _snap_window(c, b)
+        return type(c)(*(_host(f[b:b + 1]) for f in c))
     return _map_layers(one, caches)
 
 
@@ -98,6 +175,8 @@ def row_restore(caches, snap, b: int):
                 c.block_table.device, c.block_table.dtype)
             c.length[b] = torch.as_tensor(s["length"]).to(
                 c.length.device, c.length.dtype)
+        elif isinstance(c, PagedWindowKVCache):
+            _restore_window(c, s, b)
         else:
             for f, sf in zip(c, s):
                 f[b:b + 1] = sf.to(f.device, f.dtype)
@@ -106,19 +185,31 @@ def row_restore(caches, snap, b: int):
     return caches
 
 
-def set_dense_tables(caches, dense_row, b: int):
-    """Point row ``b``'s dense block tables (every paged dense layer shares
-    one logical chain) at ``dense_row``, in place — the decode-time growth
-    write; returns ``caches``."""
-    row = torch.as_tensor(dense_row)
+def _set_tables(kind, caches, row, b: int):
+    row = torch.as_tensor(row)
 
     def one(c):
-        if isinstance(c, PagedDenseKVCache):
+        if type(c) is kind:
             c.block_table[b] = row.to(c.block_table.device,
                                       c.block_table.dtype)
         return c
     _map_layers(one, caches)
     return caches
+
+
+def set_dense_tables(caches, dense_row, b: int):
+    """Point row ``b``'s dense block tables (every paged dense layer shares
+    one logical chain) at ``dense_row``, in place — the decode-time growth
+    write; returns ``caches``."""
+    return _set_tables(PagedDenseKVCache, caches, dense_row, b)
+
+
+def set_window_tables(caches, window_row, b: int):
+    """Point row ``b``'s window-ring block tables at ``window_row``, in
+    place — the lazy-ring growth write (rings allocate blocks on first
+    write, not at admission; -1 tail entries mean 'not yet written this
+    far'); returns ``caches``."""
+    return _set_tables(PagedWindowKVCache, caches, window_row, b)
 
 
 class Server:
@@ -192,15 +283,41 @@ class Server:
     def grow_tables(self, caches, dense_row, b: int):
         return set_dense_tables(caches, dense_row, b)
 
-    # ------------------------------------------------------ batch serving
     @torch.inference_mode()
-    def generate(self, prompts: torch.Tensor, gen_len: int,
-                 temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None,
-                 top_k: int = 0):
-        """prompts: (B, P) integer -> ((B, gen_len) int64, caches).  One
-        prefill, then ``gen_len - 1`` decode steps; greedy when
-        ``temperature == 0``."""
+    def grow_window_tables(self, caches, window_row, b: int):
+        return set_window_tables(caches, window_row, b)
+
+    # ------------------------------------------------------ single rows
+    @torch.inference_mode()
+    def prefill_one(self, tokens, caches, valid=None, last_pos=None):
+        """Batch-1 masked prefill into a batch-1 cache (``new_cache(1)``):
+        tokens (1, T) right-padded, ``valid`` (1, T) False on pads,
+        ``last_pos`` (1,) the last real token, whose logits come back.
+        Returns (logits (1, 1, V), caches)."""
+        return self.model.prefill(tokens.to(self.device), caches,
+                                  valid=valid, last_pos=last_pos)
+
+    @torch.inference_mode()
+    def write_slot(self, caches, row, b: int):
+        """Write the batch-1 cache ``row`` into row ``b`` of ``caches``, in
+        place; returns ``caches``."""
+        return row_write(caches, row, b)
+
+    @torch.inference_mode()
+    def prefill_row(self, prompt, caches, b: int, valid=None, last_pos=None,
+                    continued: bool = False):
+        """Prefill row ``b`` of the batched caches in place through a row
+        view (paged appends land in the row's blocks); ``continued``: the
+        row holds a restored prompt prefix and ``prompt`` (1, T) is the
+        suffix.  Returns (logits (1, 1, V), caches)."""
+        row = row_slice(caches, b)
+        logits, row = self.model.prefill(prompt.to(self.device), row,
+                                         valid=valid, last_pos=last_pos,
+                                         continued=continued)
+        return logits, row_write(caches, row, b)
+
+    # ------------------------------------------------------ batch serving
+    def _check_generate(self, prompts, gen_len: int) -> None:
         B, P = prompts.shape
         if B != self.batch:
             raise ValueError(f"batch {B} != server batch {self.batch}")
@@ -212,6 +329,16 @@ class Server:
         if P + gen_len - 1 > self.max_len:
             raise ValueError(f"prompt ({P}) + {gen_len - 1} decode steps "
                              f"exceeds max_len {self.max_len}")
+
+    @torch.inference_mode()
+    def generate(self, prompts: torch.Tensor, gen_len: int,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 top_k: int = 0):
+        """prompts: (B, P) integer -> ((B, gen_len) int64, caches).  One
+        prefill, then ``gen_len - 1`` decode steps; greedy when
+        ``temperature == 0``."""
+        self._check_generate(prompts, gen_len)
         prompts = prompts.to(self.device)
         caches = self.new_cache()
         logits, caches = self.model.prefill(prompts, caches)
@@ -219,6 +346,165 @@ class Server:
         toks, caches = self.decode_many(tok0[:, None], caches, generator,
                                         gen_len - 1, temperature, top_k)
         return torch.cat([tok0[:, None], toks], dim=1), caches
+
+    @torch.inference_mode()
+    def generate_stepwise(self, prompts: torch.Tensor, gen_len: int,
+                          temperature: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          top_k: int = 0):
+        """``generate`` as the per-token loop: one ``decode_step`` and one
+        sample per token, dispatched from the host (the baseline of the
+        chunked ``decode_many``); the same tokens as ``generate``."""
+        self._check_generate(prompts, gen_len)
+        caches = self.new_cache()
+        logits, caches = self.model.prefill(prompts.to(self.device), caches)
+        tok = sample_logits(logits[:, -1], generator, temperature,
+                            top_k)[:, None]
+        out = [tok]
+        for _ in range(gen_len - 1):
+            logits, caches = self.model.decode_step(tok, caches)
+            tok = sample_logits(logits[:, -1], generator, temperature,
+                                top_k)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1), caches
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: torch.Tensor           # (P,) int64 token ids, on the CPU
+    max_new: int
+    generated: list = dataclasses.field(default_factory=list)
+
+
+class RequestPool:
+    """Continuous batching over fixed slots of one contiguous batched cache
+    (the non-paged fallback; a paged ``Server`` is driven by
+    ``repro_torch.serve.scheduler.Scheduler``).
+
+    Decode runs in chunks (``Server.decode_many``).  Between chunks,
+    requests that finished (EOS, their ``max_new``, or the global
+    ``max_steps`` budget) free their slot and queued requests take it: the
+    prompt is prefilled batch-of-one (``prefill_one``) and written into
+    that row of the batched caches (``write_slot``); every cache keeps a
+    per-row length, so rows at different positions coexist.
+
+    Length policy (clamps, not errors): each request prefills at its own
+    power-of-two bucket, capped at the server's ``max_len``.  Longer prompts are LEFT-truncated
+    to their most recent tokens; shorter ones are RIGHT-padded with a
+    ``valid`` mask and ``last_pos``, so pads stay out of attention, of
+    MoSA's selection and of the cache lengths.  ``max_new`` is clamped so
+    that the real prompt and the completion fit ``max_len``.
+
+    ``eos``: token id that ends a request (included in its output); ``< 0``
+    disables it.  Decoding is greedy, as in the JAX pool."""
+
+    def __init__(self, server: Server, eos: int = -1, chunk: int = 8):
+        if server.paged is not None:
+            raise ValueError("RequestPool is the contiguous-slab fallback; a "
+                             "paged Server is driven by "
+                             "repro_torch.serve.scheduler.Scheduler instead")
+        self.server = server
+        self.eos = eos
+        self.chunk = chunk
+        self.queue: list = []
+
+    def submit(self, prompt, max_new: int) -> int:
+        """Queue a request (``prompt``: 1-d token ids); returns its id."""
+        rid = len(self.queue)
+        p = torch.as_tensor(np.asarray(prompt)).long().reshape(-1).cpu()
+        self.queue.append(Request(rid, p, max_new))
+        return rid
+
+    def _bucket(self, prompt_len: int) -> int:
+        """The request's prefill length: the next power of two, capped at
+        ``max_len``."""
+        b = 1
+        while b < max(prompt_len, 1):
+            b *= 2
+        return min(b, self.server.max_len)
+
+    def run(self, max_steps: int = 1000) -> dict:
+        """Serve every queued request; returns {rid: int32 tokens on the
+        CPU}.  ``max_steps`` caps the decode steps of the whole pool: when
+        it runs out, in-flight requests return what they have and the rest
+        of the queue is left unserved."""
+        with torch.inference_mode():
+            return self._run(max_steps)
+
+    def _admit(self, r: Request, caches, cur, b: int):
+        """Prefill ``r`` into a batch-1 cache, write it into row ``b`` and
+        sample its first token."""
+        srv = self.server
+        bucket = self._bucket(len(r.prompt))
+        prompt = r.prompt[-bucket:]
+        P = len(prompt)
+        # positions P..max_len-1 hold the decoded tokens' KV (pads cost
+        # nothing: decode overwrites them)
+        r.max_new = min(r.max_new, srv.max_len - P + 1)
+        tokens = torch.zeros((1, bucket), dtype=torch.long)
+        tokens[0, :P] = prompt
+        dev = srv.device
+        valid = (torch.arange(bucket) < P)[None].to(dev)
+        logits, row = srv.prefill_one(
+            tokens, srv.new_cache(batch=1), valid,
+            torch.full((1,), P - 1, dtype=torch.long, device=dev))
+        srv.write_slot(caches, row, b)
+        tok0 = srv.sample(logits[:, -1])
+        cur[b, 0] = tok0[0]
+        r.generated.append(int(tok0[0]))
+
+    def _run(self, max_steps: int) -> dict:
+        srv = self.server
+        B = srv.batch
+        results: dict = {}
+        slots: list = [None] * B
+        caches = srv.new_cache()
+        cur = torch.zeros((B, 1), dtype=torch.long, device=srv.device)
+        steps = 0
+
+        def finish(b):
+            r = slots[b]
+            results[r.rid] = torch.tensor(r.generated, dtype=torch.int32)
+            slots[b] = None
+
+        while self.queue or any(s is not None for s in slots):
+            for b in range(B):                 # refill the free slots
+                if slots[b] is None and self.queue and steps < max_steps:
+                    r = self.queue.pop(0)
+                    self._admit(r, caches, cur, b)
+                    slots[b] = r
+                    if r.max_new <= 1 or r.generated[-1] == self.eos:
+                        finish(b)
+            if not any(s is not None for s in slots):
+                if steps >= max_steps:
+                    break
+                continue
+            if steps >= max_steps:
+                for b in range(B):
+                    if slots[b] is not None:
+                        finish(b)
+                break
+
+            # One decode chunk for all rows, clamped to the longest
+            # remaining request (n stays in [1, chunk]).
+            need = max(r.max_new - len(r.generated)
+                       for r in slots if r is not None)
+            n = max(min(self.chunk, max_steps - steps, need), 1)
+            toks, caches = srv.decode_many(cur, caches, n=n)
+            steps += n
+            host = toks.cpu().numpy()
+            cur = toks[:, -1:].clone()
+            for b in range(B):
+                r = slots[b]
+                if r is None:
+                    continue
+                for t in host[b]:
+                    r.generated.append(int(t))
+                    if int(t) == self.eos or len(r.generated) >= r.max_new:
+                        finish(b)
+                        break
+        return results
 
 
 # -------------------------------------------------------------------- CLI
@@ -233,7 +519,8 @@ def _load_run(cfg, args, device):
     nb = -(-args.max_len // 16)
     server = Server(cfg, batch=args.batch, max_len=args.max_len,
                     paged=PagedConfig(block_size=16,
-                                      num_blocks=args.batch * nb),
+                                      num_blocks=args.batch * nb,
+                                      num_window_blocks=4 * args.batch),
                     device=device)
     build = bursty_workload if args.bursty else poisson_workload
     wl = build(args.load_rate, args.load_n, args.load_seed, cfg.vocab)
@@ -268,6 +555,9 @@ def main(argv=None):
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--stepwise", action="store_true",
+                   help="use the per-token loop (generate_stepwise) instead "
+                        "of the chunked decoder")
     p.add_argument("--metrics-path", default=None,
                    help="write an obs metrics snapshot here on exit "
                         "(.jsonl appends)")
@@ -304,9 +594,12 @@ def main(argv=None):
                                             (args.batch, args.prompt_len)))
     gen = torch.Generator(device=device).manual_seed(0)
 
+    generate = server.generate_stepwise if args.stepwise else \
+        server.generate
+
     def run():
-        toks, _ = server.generate(prompts, args.gen, args.temperature, gen,
-                                  args.top_k)
+        toks, _ = generate(prompts, args.gen, args.temperature, gen,
+                           args.top_k)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return toks
@@ -316,7 +609,8 @@ def main(argv=None):
     toks = run()
     dt = time.perf_counter() - t0
     print(f"generated {tuple(toks.shape)} in {dt:.2f}s on {device} "
-          f"({args.batch * args.gen / dt:.1f} tok/s)")
+          f"({args.batch * args.gen / dt:.1f} tok/s, "
+          f"{'stepwise' if args.stepwise else 'chunked'})")
     print(toks[0].tolist())
     # the paper's KV metric, for a model with MoSA layers
     if cfg.mosa is not None:

@@ -42,7 +42,11 @@ def main(argv=None):
                    choices=[None, "bfloat16", "float32"],
                    help="bfloat16 = bf16-compute/fp32-master")
     p.add_argument("--remat", default=None,
-                   choices=[None, "none", "full", "dots_saveable", "mosa"])
+                   choices=[None, "none", "full", "dots_saveable", "mosa"],
+                   help="per-block activation remat: none, full (keep the "
+                        "block inputs), dots_saveable (keep the matmul "
+                        "outputs) or mosa (keep the MoSA gather and router "
+                        "scores)")
     p.add_argument("--mosa-impl", default=None,
                    choices=[None, "einsum", "kernel"],
                    help="kernel = the hand-written MoSA kernels (forward "

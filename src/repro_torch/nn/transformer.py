@@ -9,9 +9,8 @@ is kept: the weight converter needs it to unstack the JAX parameters.
 Training: ``forward`` (fp32 logits, aux loss), ``backbone`` (optionally
 with the router health of every MoSA layer) and ``loss`` (masked next-token
 cross-entropy; packed rows through ``segments``/``positions``).  Remat
-``none`` and ``full`` (``torch.utils.checkpoint`` per block, non-reentrant:
-the block's forward runs again in the backward); ``mosa`` and
-``dots_saveable`` are not ported yet.
+per block: ``none``, ``full``, ``dots_saveable`` and ``mosa``
+(``repro_torch.nn.remat``).
 
 Ported mixers: ``mosa`` (the hybrid; MoSA or, train-only, the fixed /
 routing baselines on its sparse side), ``attn`` and ``attn_local`` (as
@@ -27,7 +26,6 @@ import dataclasses
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.attention import MultiHeadAttention
@@ -35,6 +33,7 @@ from repro_torch.core.hybrid import HybridAttention
 from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear, RMSNorm
+from repro_torch.nn.remat import remat
 from repro_torch.serve.paged_attention import packed_token_layout
 from repro_torch.serve.paged_kv import PagedDenseKVCache, PagedWindowKVCache
 
@@ -160,8 +159,17 @@ class Block(nn.Module):
         return DenseKVCache.create(batch, max_len, a.n_kv_heads, a.d_head,
                                    dtype, device)
 
-    def prefill(self, x, cache, positions=None, valid=None):
-        h, cache = self.mixer.prefill(self.norm1(x), cache, positions, valid)
+    def prefill(self, x, cache, positions=None, valid=None,
+                continued: bool = False):
+        """``continued``: ``cache`` holds a restored prompt prefix and ``x``
+        is the suffix (only the MoSA mixer needs to know: the dense paged
+        caches are past-aware through their lengths)."""
+        if self.spec.mixer == "mosa":
+            h, cache = self.mixer.prefill(self.norm1(x), cache, positions,
+                                          valid, continued=continued)
+        else:
+            h, cache = self.mixer.prefill(self.norm1(x), cache, positions,
+                                          valid)
         return self._ffn(x + h), cache
 
     def prefill_packed(self, x, cache, meta):
@@ -212,14 +220,7 @@ class TransformerLM(nn.Module):
     HEALTH_KEYS = ("sel_entropy", "drop_rate", "head_util")
 
     def _maybe_remat(self, block):
-        policy = self.cfg.remat
-        if policy == "none":
-            return block
-        if policy == "full":
-            return lambda *a: checkpoint(block, *a, use_reentrant=False)
-        raise NotImplementedError(
-            f"remat {policy!r} is not ported yet (ROADMAP A: remat "
-            "mosa/dots_saveable); use 'none' or 'full'")
+        return remat(block, self.cfg.remat)
 
     def gradient_free(self) -> set:
         """Names of the parameters that the loss never reaches (each
@@ -303,14 +304,15 @@ class TransformerLM(nn.Module):
                                  device=device) for layer in self.layers]
 
     def prefill(self, tokens, caches, positions=None, valid=None,
-                last_pos=None):
+                last_pos=None, continued: bool = False):
         """tokens (B, T) -> (logits (B, 1, V) at ``last_pos`` (default the
         last token), caches).  ``valid``: (B, T) bool, False marks right-pad
-        tokens."""
+        tokens.  ``continued``: the caches hold a restored prompt prefix
+        (a prefix-cache hit) and ``tokens`` are the suffix."""
         x = self.embed(tokens)
         new = []
         for layer, cache in zip(self.layers, caches):
-            x, cache = layer.prefill(x, cache, positions, valid)
+            x, cache = layer.prefill(x, cache, positions, valid, continued)
             new.append(cache)
         x = self.final_norm(x)
         if last_pos is None:

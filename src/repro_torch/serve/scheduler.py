@@ -5,17 +5,24 @@ The scheduler admits requests while FREE BLOCKS suffice and grows each
 row's dense block chain one block at a time as decode proceeds:
 
   * **Admission** — a request needs ``ceil(P / bs)`` dense blocks for its
-    prompt (minus any prefix-cache hit); if the pool cannot cover that
-    after LRU-evicting unused prefix-cache entries, the request waits.
-  * **Decode growth** — before each decode chunk, rows crossing a block
-    boundary get a fresh block (``Server.grow_tables``).
+    prompt (minus any prefix-cache hit) plus, on a model with window
+    layers, the ring blocks its prompt writes (``ceil(min(P, W) / bs)``:
+    the lazy ring); if the pools cannot cover that after LRU-evicting
+    unused prefix-cache entries, the request waits.
+  * **Decode growth** — before each decode chunk, rows crossing a dense
+    block boundary get a fresh block (``Server.grow_tables``), and rows
+    whose next tokens reach unallocated ring slots get those ring blocks
+    (``Server.grow_window_tables``); a row that has seen W tokens has its
+    whole ring.  Allocation always precedes the write: a ring write
+    through a -1 entry drops the KV but records the slot's position.
   * **Preempt-to-recompute** — when growth cannot be satisfied, the
     latest-admitted victim releases all its blocks and re-enters the queue
     with ``prompt + generated`` as its new prompt, so the oldest requests
     always run to completion.
   * **Prefix cache** — prompts are matched against the block trie
     (``repro_torch.serve.prefix_cache``); a hit increfs the shared dense
-    blocks, restores the boundary snapshot (the MoSA caches) and prefills
+    blocks, restores the boundary snapshot (the MoSA caches, the window
+    rings' content scattered into the row's own ring blocks) and prefills
     only the unshared suffix (the exact union selection of
     ``MoSAAttention.prefill_past``).  On a miss the prefill is split at
     the shareable boundary so the inserted snapshot is a function of the
@@ -34,9 +41,7 @@ Differences from the JAX package: the server holds its module on one
 device (no mesh, no sharding hints); sampling goes through
 ``sample_logits`` with a ``torch.Generator`` (greedy by default, as there);
 results are int32 CPU tensors; the whole ``run`` loop and every cache op
-runs under ``torch.inference_mode()``.  The window pool, its lazy ring
-and the window row ops are not ported yet: a model with window layers
-raises ``NotImplementedError`` (``Server.generate`` serves it).
+runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.kv_cache import MoSABlockKVCache, MoSAKVCache
-from repro_torch.serve.paged_kv import BlockPool, PagedDenseKVCache
+from repro_torch.serve.paged_kv import (BlockPool, PagedDenseKVCache,
+                                        PagedWindowKVCache)
 from repro_torch.serve.prefix_cache import PrefixCache
 
 # Bounded retention for per-request SLO records.
@@ -114,10 +120,14 @@ def _paged_entries(snap) -> list:
     return out
 
 
-def _set_snapshot_tables(snap, dense_row: np.ndarray) -> None:
-    """Point a host snapshot's dense block tables at ``dense_row``."""
+def _set_snapshot_tables(snap, dense_row: np.ndarray,
+                         window_row: np.ndarray) -> None:
+    """Point a host snapshot's block tables at ``dense_row`` /
+    ``window_row`` (int32, -1 padded).  Window entries are the ones that
+    carry ring content (``"k"``)."""
     for e in _paged_entries(snap):
-        e["block_table"] = torch.from_numpy(dense_row.astype(np.int32).copy())
+        row = window_row if "k" in e else dense_row
+        e["block_table"] = torch.from_numpy(row.astype(np.int32).copy())
 
 
 def _table_row(ids: List[int], width: int) -> np.ndarray:
@@ -177,7 +187,8 @@ class Scheduler:
     """Continuous batching with block-granular admission.
 
     ``server``: a ``repro_torch.launch.serve.Server`` built with
-    ``paged=PagedConfig(num_blocks=...)`` — an explicit budget; the
+    ``paged=PagedConfig(num_blocks=..., num_window_blocks=...)`` —
+    explicit budgets (the window one for a model with window layers); the
     worst-case auto sizing would make admission vacuous."""
 
     def __init__(self, server, eos: int = -1, chunk: int = 8,
@@ -226,25 +237,26 @@ class Scheduler:
 
         self.caches = server.new_cache()
         leaves = _cache_leaves(self.caches)
-        other = [type(x).__name__ for x in leaves
-                 if not isinstance(x, (PagedDenseKVCache, MoSAKVCache,
-                                       MoSABlockKVCache))]
-        if other:
-            raise NotImplementedError(f"the Scheduler serves paged-dense and "
-                                      f"MoSA caches only, not {other} "
-                                      f"(the Scheduler's window pool is not "
-                                      f"ported yet)")
         dense = [x for x in leaves if isinstance(x, PagedDenseKVCache)]
+        window = [x for x in leaves if isinstance(x, PagedWindowKVCache)]
         if not dense:
             raise ValueError("paged scheduler needs at least one paged dense "
                              "layer")
         self.nb_max = dense[0].block_table.shape[-1]
+        self.has_window = bool(window)
+        self.wb = window[0].block_table.shape[-1] if window else 0
+        if self.has_window and paged.num_window_blocks <= 0:
+            raise ValueError("the model has window layers: pass "
+                             "PagedConfig(num_window_blocks=...)")
         # A hit must restore per-row state beyond dense blocks (MoSA top-k
-        # sets) -> only snapshot nodes usable.
+        # sets, window rings) -> only snapshot nodes usable.
         self.need_snapshot = any(
             not isinstance(x, PagedDenseKVCache) for x in leaves)
 
         self.dense_pool = BlockPool(paged.num_blocks, self.bs, name="dense")
+        self.window_pool = (BlockPool(paged.num_window_blocks, self.bs,
+                                      name="window")
+                            if self.has_window else None)
         self.prefix = PrefixCache(self.bs) if prefix_cache else None
         self._empty_row = server.snapshot_row(self.caches, 0)
         # prefill_chunks * chunk_tokens is the slot count every dispatch
@@ -326,14 +338,24 @@ class Scheduler:
                     self.dense_pool):
                 return None
 
+    def _window_blocks_for(self, tokens: int) -> int:
+        """Ring blocks needed once ``tokens`` tokens have been written:
+        positions ``0..tokens-1`` land on ring slots ``0..min(tokens,
+        W)-1`` (the ring fills in order until it wraps), so the allocated
+        blocks are a prefix of the table: growth extends it."""
+        W = self.wb * self.bs
+        return -(-min(tokens, W) // self.bs)
+
     def _free_slot(self, b):
         """Release row ``b``'s blocks AND clear its device state: decode
         keeps stepping every row, so a stale block table would scatter the
-        dead row's KV into freed blocks the allocator may already have
-        handed to a live request.  The empty template (-1 tables, zero
-        lengths) makes the dead row's writes drop instead."""
+        dead row's KV into freed blocks (dense or ring) the allocator may
+        already have handed to a live request.  The empty template (-1
+        tables, zero lengths) makes the dead row's writes drop instead."""
         s = self._slots[b]
         self.dense_pool.decref(s["dense_ids"])
+        if self.window_pool is not None:
+            self.window_pool.decref(s["window_ids"])
         self._slots[b] = None
         self.caches = self.server.restore_row(
             self.caches, copy.deepcopy(self._empty_row), b)
@@ -442,6 +464,13 @@ class Scheduler:
             if chain_ids:
                 self.dense_pool.decref(chain_ids)
             return None
+        window_ids: List[int] = []
+        if self.window_pool is not None:
+            # lazy ring: only the blocks the prompt's P tokens will write
+            window_ids = self.window_pool.alloc(self._window_blocks_for(P))
+            if window_ids is None:
+                self.dense_pool.decref(chain_ids + suffix_ids)
+                return None
         dense_ids = chain_ids + suffix_ids
 
         insert_at = None
@@ -462,7 +491,8 @@ class Scheduler:
                 # Miss: force a chunk boundary at the shareable depth so the
                 # snapshot inserted there depends on the prefix tokens alone.
                 insert_at = ((P - 1) // self.bs) * self.bs
-        _set_snapshot_tables(snap, _table_row(dense_ids, self.nb_max))
+        _set_snapshot_tables(snap, _table_row(dense_ids, self.nb_max),
+                             _table_row(window_ids, max(self.wb, 1)))
         self.caches = srv.restore_row(self.caches, snap, b)
 
         reg, tr = obs.registry(), obs.tracer()
@@ -476,7 +506,8 @@ class Scheduler:
         if node is not None:
             reg.observe("serve.prefix_hit_frac", depth / max(P, 1),
                         bounds=obs.UNIT_BOUNDS)
-        self._slots[b] = {"req": r, "dense_ids": dense_ids, "length": P,
+        self._slots[b] = {"req": r, "dense_ids": dense_ids,
+                          "window_ids": window_ids, "length": P,
                           "seq": self._admit_seq, "phase": "prefill",
                           "prompt_np": prompt_np, "done": depth,
                           "insert_at": insert_at, "paused_snap": None,
@@ -613,7 +644,8 @@ class Scheduler:
         chain, tip = self.prefix.insert(
             s["prompt_np"][:n_share], s["dense_ids"][:n_share // self.bs],
             self.dense_pool)
-        _set_snapshot_tables(snap1, _table_row(chain, self.nb_max))
+        _set_snapshot_tables(snap1, _table_row(chain, self.nb_max),
+                             _table_row([], max(self.wb, 1)))
         self.prefix.attach_snapshot(tip, snap1)
         s["insert_at"] = None
 
@@ -624,14 +656,15 @@ class Scheduler:
         preserves the row; the empty template (-1 tables, zero lengths)
         makes the decode writes drop.  ``_advance_prefills`` restores the
         snapshot before the row's next chunk."""
-        srv = self.server
-        for b, s in enumerate(self._slots):
-            if s is not None and s["phase"] == "prefill" \
-                    and s["paused_snap"] is None:
-                s["paused_snap"] = srv.snapshot_row(self.caches, b)
-                self.caches = srv.restore_row(
-                    self.caches, copy.deepcopy(self._empty_row), b)
-                obs.registry().inc("serve.pauses")
+        srv, reg = self.server, obs.registry()
+        with reg.timer("serve.pause_s"):
+            for b, s in enumerate(self._slots):
+                if s is not None and s["phase"] == "prefill" \
+                        and s["paused_snap"] is None:
+                    s["paused_snap"] = srv.snapshot_row(self.caches, b)
+                    self.caches = srv.restore_row(
+                        self.caches, copy.deepcopy(self._empty_row), b)
+                    reg.inc("serve.pauses")
 
     # ------------------------------------------------------------- growth
     def _alloc_or_preempt(self, alloc_fn, n: int, b: int, live):
@@ -653,9 +686,10 @@ class Scheduler:
         return ids
 
     def _grow_row(self, b: int, n: int, live) -> bool:
-        """Cover the next ``n`` decode tokens of row ``b`` with dense chain
-        blocks (allocation always precedes the write).  Returns False iff
-        ``b`` itself had to be preempted."""
+        """Cover the next ``n`` decode tokens of row ``b``: dense chain
+        blocks, and the ring blocks those tokens' ring slots need
+        (allocation always precedes the write).  Returns False iff ``b``
+        itself had to be preempted."""
         srv = self.server
         s = self._slots[b]
         needed = min(-(-(s["length"] + n) // self.bs), self.nb_max)
@@ -668,6 +702,18 @@ class Scheduler:
             s["dense_ids"].extend(ids)
             self.caches = srv.grow_tables(
                 self.caches, _table_row(s["dense_ids"], self.nb_max), b)
+        if self.window_pool is not None:
+            extra_w = self._window_blocks_for(s["length"] + n) \
+                - len(s["window_ids"])
+            if extra_w > 0:
+                ids = self._alloc_or_preempt(self.window_pool.alloc,
+                                             extra_w, b, live)
+                if ids is None:
+                    self._preempt(b)
+                    return False
+                s["window_ids"].extend(ids)
+                self.caches = srv.grow_window_tables(
+                    self.caches, _table_row(s["window_ids"], self.wb), b)
         return True
 
     # ---------------------------------------------------------------- run

@@ -66,7 +66,7 @@ class TrainConfig:
     arch_kwargs: dict = dataclasses.field(default_factory=dict)
     microbatch: int = 1                  # grad-accumulation splits per step
     compute: Optional[str] = None        # "bfloat16" -> bf16/fp32-master
-    remat: Optional[str] = None          # none | full
+    remat: Optional[str] = None          # none|full|dots_saveable|mosa
     mosa_impl: Optional[str] = None      # einsum | kernel
     router_health: bool = True           # log router telemetry
     health_in_step: bool = True          # health as train-step metrics

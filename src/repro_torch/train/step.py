@@ -42,7 +42,8 @@ def mixed_precision(model_cfg, compute: str = "bfloat16"):
 
 
 def with_remat(model_cfg, policy: str):
-    """Set the remat policy knob (``none`` | ``full`` are ported)."""
+    """Set the remat policy knob: ``none`` | ``full`` | ``dots_saveable`` |
+    ``mosa`` (``repro_torch.nn.remat``)."""
     return dataclasses.replace(model_cfg, remat=policy)
 
 

@@ -3,7 +3,7 @@ the CPU, with converted weights: ``MoSAAttention`` and ``HybridAttention``
 (output, input and parameter gradients, the router weights included),
 ``TransformerLM.loss`` and its gradients on the ``mosa-paper`` smoke preset
 (2 layers, vocab 512), packed rows, ``router_health_stats``, and the remat
-policies.
+policy ``full`` (``dots_saveable`` and ``mosa``: ``test_torch_remat.py``).
 
 The port's ``impl="kernel"`` (on the CPU: the autograd Function over the
 kernels' plain versions) is held against the JAX package's ``pallas``
@@ -212,11 +212,3 @@ def test_remat_full_preserves_loss_and_grads():
     assert l1.item() == l0.item()
     for a, b in zip(g0, g1):
         torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-6)
-
-
-@pytest.mark.parametrize("policy", ["mosa", "dots_saveable"])
-def test_unported_remat_policies_raise(policy):
-    _, _, model = _lm_pair("einsum")
-    model.cfg = with_remat(model.cfg, policy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(_torch_batch(_lm_batch(False)))
