@@ -185,14 +185,37 @@ Phases (any failure raises, so the script exits nonzero):
      policy: the loss bitwise ``none``'s, every grad within 1e-6 of its
      tensor's max |grad|, ``mosa`` keeping exactly the 2 tagged tensors
      per layer and ``dots_saveable`` only matrix products.  Gate: ``full``
-     and ``mosa`` below ``none`` in peak memory.
+     and ``mosa`` below ``none`` in peak memory;
+ 30. phase 8's training on a one-rank mesh: the Trainer with ``mesh_shape``
+     (1, 1) over ``data`` and ``model`` starts a world-1 NCCL process group
+     and runs the sharded step (``repro_torch.dist.parallel``), once under
+     ``fsdp_tp`` (with a ``ckpt_dir``: heartbeats and a checkpoint of the
+     gathered full tensors) and once under ``tp``, beside a plain Trainer
+     of phase 8's configuration, all three under deterministic algorithms
+     (``index_add_``'s atomics make two runs of phase 8 differ by ~1e-5):
+     every loss and grad norm within 1e-6 relative of the plain run's (and
+     whether bitwise; the differences to phase 8's own values beside),
+     exactly 144 launches each of #2 and the fused backward over the 3
+     timed steps, a heartbeat file, the straggler summary; step ms and peak
+     memory beside the plain run's and phase 8's;
+ 31. tensor-parallel MoSA: layer 0 of phase 8's model at 8 x 1024 cut into
+     ``model`` = 4 rank-local shards (1 dense + 69 MoSA heads each), each
+     through the rank-local forward a rank of a (1, 4) mesh runs before
+     its all-reduce, and its backward: #2 and the fused backward exactly
+     once per shard, identical selections (a difference only on an exact
+     fp32 tie), the shards' sum within 1e-5 relative of the unsharded
+     layer, every shard's grads within 1e-5 of the unsharded slices;
+ 32. ``compressed_all_reduce`` of phase 30's last gradients on its NCCL
+     group (top-k 1 % and int8): kept + residual is the gradient bit for
+     bit and the reduction is kept; the compression and the all-reduce
+     timed with CUDA events.
 
-Phases 3 and 4 hold and time #9 and #10 too.  The last eleven lines are
+Phases 3 and 4 hold and time #9 and #10 too.  The last twelve lines are
 the ``serve`` JSON, the ``train`` JSON, the ``sched`` JSON (phases 26 and
 27 under ``window``), the ``block`` JSON, the ``window`` JSON, the
 ``sweep`` JSON, the ``pool`` JSON (28, 28b), the ``remat`` JSON (29), the
-``kernels`` JSON, the ``nvidia-smi`` name and power limit, and the result
-JSON.
+``dist`` JSON (30-32), the ``kernels`` JSON, the ``nvidia-smi`` name and
+power limit, and the result JSON.
 """
 
 from __future__ import annotations
@@ -1657,17 +1680,18 @@ def cross_check(torch, server, cfg, prompts, P=256, paged=True):
 TRAIN_STEPS = 4             # the first is untimed
 
 
-def train_slice(torch, remat="none", **mosa):
+def train_slice(torch, remat="none", mesh=None, **mosa):
     """Full-width training through ``Trainer`` under the remat policy
     ``remat``: the counters are zeroed once the untimed first step has
     returned, and read after the last.  ``mosa`` overrides the MoSA config
-    (block choice)."""
+    (block choice); ``mesh`` adds ``TrainConfig`` fields (``mesh_shape``,
+    ``rule_set``, ``ckpt_dir``: [30])."""
     from repro_torch.train.loop import TrainConfig, Trainer
     cfg = TrainConfig(arch="mosa-paper", preset="full",
                       arch_kwargs={"variant": "mosa", **mosa}, seq_len=1024,
                       global_batch=64, microbatch=8, lr=2.5e-4,
                       clip_norm=0.25, steps=TRAIN_STEPS, mosa_impl="kernel",
-                      remat=remat, log_every=1, seed=0)
+                      remat=remat, log_every=1, seed=0, **(mesh or {}))
     trainer = Trainer(cfg)
     mc = trainer.model_cfg
     n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -1679,9 +1703,12 @@ def train_slice(torch, remat="none", **mosa):
     counters = kernel_counters()
     step_fn, calls = trainer.train_step, {"n": 0}
 
+    step_peaks = []
+
     def first_step_uncounted(*args):
         out = step_fn(*args)
         calls["n"] += 1
+        step_peaks.append(torch.cuda.max_memory_allocated())
         if calls["n"] == 1:
             torch.cuda.synchronize()
             for c in counters.values():
@@ -1716,6 +1743,7 @@ def train_slice(torch, remat="none", **mosa):
     tokens = cfg.global_batch * cfg.seq_len
     res = dict(params=n_params, step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s, peak_gib=peak / 2 ** 30,
+               step_peak_gib=max(step_peaks) / 2 ** 30,
                losses=losses, grad_norms=gnorms,
                step_ms_each=[h["dt"] * 1e3 for h in history],
                launches={k: v / timed for k, v in launches.items()},
@@ -3190,6 +3218,273 @@ def remat_slice(torch):
     return out
 
 
+# ----------------------------------------- training on a mesh ([30]-[32])
+MESH_DIR = ROOT / "build" / "mesh_train"
+COMPRESS_FRAC = 0.01
+
+
+def mesh_train_slice(torch, train):
+    """[30]: [8]'s Trainer on a one-rank mesh (NCCL, world 1, mesh (1, 1)
+    over data and model) under ``fsdp_tp`` and ``tp``, beside a plain
+    Trainer of [8]'s configuration, all three under deterministic
+    algorithms: ``index_add_``'s atomics make two runs of [8] itself
+    differ (a near-tied top-k pick flips now and then, ~1e-5 on the loss),
+    so the gate holds the mesh runs to the plain run of the same call:
+    every loss and grad norm within 1e-6 relative (and whether bitwise);
+    the relative differences to [8]'s own values are reported beside.
+    Also exactly 144 launches each of #2 and the fused backward over the 3
+    timed steps (0 of the split #3/#4 and of serving's kernels), a
+    heartbeat file (the ``fsdp_tp`` run has a ``ckpt_dir``, so it also
+    writes the gathered checkpoint at its end), the straggler summary;
+    step ms and peak memory beside the plain run's and [8]'s.  Returns
+    (the ``tp`` trainer, the last step's gradients after the dp
+    reduction, results)."""
+    import shutil
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.dist.parallel import TrainShards
+    out = {}
+    keys = ("losses", "grad_norms")
+    reduce_grads = TrainShards.reduce_grads
+    grads, calls = {}, {"n": 0}
+
+    def recording(self, g):
+        """Keep the last step's reduced gradients (only those: a copy kept
+        from an earlier step would count in the next step's peak)."""
+        red = reduce_grads(self, g)
+        calls["n"] += 1
+        if calls["n"] == TRAIN_STEPS:
+            grads.update(red)
+        return red
+
+    with deterministic_algorithms(torch):
+        log("  plain Trainer, [8]'s configuration (deterministic):")
+        trainer, plain = train_slice(torch)
+        out["plain"] = {k: plain[k] for k in (
+            "step_ms", "step_ms_each", "tokens_per_s", "step_peak_gib",
+            "losses", "grad_norms")}
+        log("  one microbatch of the plain run, profiled:")
+        out["plain"]["microbatch"] = profile_train(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        out["plain"]["rel_to_8"] = {k: max(abs(a - b) / abs(b) for a, b in
+                                           zip(plain[k], train[k]))
+                                    for k in keys}
+        for rule_set in ("fsdp_tp", "tp"):
+            mesh = dict(mesh_shape=(1, 1), rule_set=rule_set)
+            if rule_set == "fsdp_tp":
+                shutil.rmtree(MESH_DIR, ignore_errors=True)
+                mesh["ckpt_dir"] = str(MESH_DIR)
+            TrainShards.reduce_grads = recording
+            calls["n"] = 0
+            grads.clear()
+            try:
+                log(f"  rule set {rule_set} on a (1, 1) mesh "
+                    "(deterministic):")
+                trainer, res = train_slice(torch, mesh=mesh)
+            finally:
+                TrainShards.reduce_grads = reduce_grads
+            ctx = trainer.ctx
+            backend = torch.distributed.get_backend()
+            if backend != "nccl" or ctx.world != 1:
+                raise AssertionError(f"mesh run on {backend}, world "
+                                     f"{ctx.world}")
+            rel = {k: max(abs(a - b) / abs(b) for a, b in
+                          zip(res[k], plain[k])) for k in keys}
+            rel8 = {k: max(abs(a - b) / abs(b) for a, b in
+                           zip(res[k], train[k])) for k in keys}
+            bitwise = all(res[k] == plain[k] for k in keys)
+            log(f"  vs the plain run: worst relative difference of the "
+                f"losses {rel['losses']:.2e}, of the grad norms "
+                f"{rel['grad_norms']:.2e}; bitwise equal: {bitwise} (vs "
+                f"[8]'s own values: {rel8['losses']:.2e}, "
+                f"{rel8['grad_norms']:.2e})")
+            if not max(rel.values()) <= 1e-6:
+                raise AssertionError(f"mesh {rule_set}: losses or grad "
+                                     f"norms off the plain run by {rel}")
+            summary = trainer.monitor.summary()
+            log(f"  straggler summary: {summary}")
+            entry = dict(rule_set=rule_set, step_ms=res["step_ms"],
+                         step_ms_each=res["step_ms_each"],
+                         tokens_per_s=res["tokens_per_s"],
+                         peak_gib=res["peak_gib"],
+                         step_peak_gib=res["step_peak_gib"],
+                         losses=res["losses"], grad_norms=res["grad_norms"],
+                         rel_to_plain=rel, bitwise_plain=bitwise,
+                         rel_to_8=rel8, straggler=summary,
+                         launches_total=res["launches_total"])
+            if rule_set == "fsdp_tp":
+                beat = MESH_DIR / "heartbeats" / "rank_0.json"
+                hb = json.loads(beat.read_text())
+                if hb["step"] != TRAIN_STEPS - 1 or hb["rank"] != 0:
+                    raise AssertionError(f"heartbeat {hb}")
+                entry["heartbeat"] = hb
+                entry["checkpoint_step"] = ckpt_lib.latest_step(
+                    str(MESH_DIR))
+                if entry["checkpoint_step"] != TRAIN_STEPS:
+                    raise AssertionError(
+                        f"checkpoint at {entry['checkpoint_step']}")
+                log(f"  heartbeat {hb}; checkpoint of full tensors at step "
+                    f"{entry['checkpoint_step']}")
+                shutil.rmtree(MESH_DIR, ignore_errors=True)
+                del trainer
+                torch.cuda.empty_cache()
+            log(f"  step {res['step_ms']:.1f} ms (plain "
+                f"{plain['step_ms']:.1f}, [8] {train['step_ms']:.1f}); peak "
+                f"{res['step_peak_gib']:.3f} GiB through the last step "
+                f"(plain {plain['step_peak_gib']:.3f}, [8] "
+                f"{train['step_peak_gib']:.3f})")
+            out[rule_set] = entry
+        log("  one microbatch of the tp run, profiled:")
+        out["tp"]["microbatch"] = profile_train(torch, trainer)
+    return trainer, grads, out
+
+
+def shard_selections(torch, sparse, x):
+    from repro_torch.core.router import select_topk
+    with torch.no_grad():
+        scores = sparse.router.scores(x)
+        _, idx = select_topk(scores, sparse.k_for(x.shape[1]),
+                             sparse.cfg.force_first_token)
+    return scores, idx
+
+
+def tp_shards_slice(torch, m=4):
+    """[31]: layer 0 of [8]'s model (4 dense + 276 MoSA heads, d_model 512)
+    at 8 x 1024, fp32, the kernel route, split into ``model`` = 4 rank-local
+    shards (1 dense + 69 MoSA heads: the raw ``tp`` placements of a (1, 4)
+    mesh), each run through ``HybridAttention.local_forward`` (what a rank
+    runs before its all-reduce) and its backward on the card.  Gates: #2
+    and the fused backward launched exactly once per shard; identical
+    selections (a difference only on an exact fp32 tie, printed with its
+    router-score gap); the shards' outputs summed within 1e-5 relative of
+    the unsharded layer; each shard's parameter grads within 1e-5 of the
+    max |grad| of the matching slices of the unsharded grads."""
+    import copy
+    from repro_torch.data.pipeline import PackedLMDataset, SyntheticCorpus
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.parallel import TensorParallel, shard_model
+    from repro_torch.nn.transformer import TransformerLM
+    cfg = slice_config()
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        model = TransformerLM(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = PackedLMDataset(SyntheticCorpus(vocab=cfg.vocab, seed=0),
+                            seq_len=1024, global_batch=64).batch_at(0)
+    tokens = torch.from_numpy(batch["tokens"][:8]).long().to(dev)
+    layer = model.layers[0].mixer
+    with torch.no_grad():
+        x = model.layers[0].norm1(model.embed(tokens))
+    dy = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    names = [k for k, _ in layer.named_parameters()]
+    full = dict(layer.named_parameters())
+    y = layer(x)
+    want_g = dict(zip(names, torch.autograd.grad(
+        y, [full[k] for k in names], dy)))
+    scores, idx = shard_selections(torch, layer.sparse, x)
+    mesh = {"data": 1, "model": m}
+    specs = shd.resolve_specs(shd.param_shapes(layer), layer.specs(),
+                              shd.mesh_rules(mesh, "tp"), mesh)
+    counters = kernel_counters()
+    want = want_launches(mosa_attention_fwd_res=1, mosa_attention_bwd=1)
+    total, res, ties = torch.zeros_like(y), {"shards": []}, []
+    for r in range(m):
+        shard = shard_model(copy.deepcopy(layer), TensorParallel(None, r, m),
+                            specs, {"data": 0, "model": r}, mesh)
+        h = shard.sparse.router.w.shape[0]
+        s_r, idx_r = shard_selections(torch, shard.sparse, x)
+        ref_idx = idx[:, r * h:(r + 1) * h]
+        diff = (idx_r != ref_idx).any(-1).nonzero().tolist()
+        for b, hh in diff:
+            a = set(idx_r[b, hh].tolist()) ^ set(ref_idx[b, hh].tolist())
+            vals = s_r[b, hh, sorted(a)]
+            gap = (vals.max() - vals.min()).item()
+            ties.append(dict(shard=r, row=b, head=r * h + hh,
+                             positions=sorted(a), gap=gap))
+            log(f"  shard {r} row {b} head {r * h + hh}: selections differ "
+                f"at {sorted(a)}, router-score gap {gap:.3e}")
+        params = dict(shard.named_parameters())
+        for c in counters.values():
+            c.count = 0
+        part = shard.local_forward(x)
+        grads = torch.autograd.grad(part, [params[k] for k in names], dy)
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in counters.items()}
+        if launches != want:
+            raise AssertionError(f"shard {r}: launches {launches} != {want}")
+        total += part.detach()
+        worst = (0.0, "")
+        for k, g in zip(names, grads):
+            sl = shd.local_slices(want_g[k].shape, specs[k], mesh,
+                                  {"data": 0, "model": r})
+            ref = want_g[k][sl]
+            err = ((g - ref).abs().max() / ref.abs().max()).item()
+            worst = max(worst, (err, k))
+        res["shards"].append(dict(mosa_heads=h, dense_cols=shard.dense.q_cols,
+                                  grad_rel=worst[0], worst_grad=worst[1],
+                                  selection_diffs=len(diff)))
+        log(f"  shard {r}: {h} MoSA heads, dense columns "
+            f"{shard.dense.q_cols}; launches {launches}; worst grad "
+            f"{worst[0]:.2e} ({worst[1]})")
+        if not worst[0] <= 1e-5:
+            raise AssertionError(f"shard {r}: grad of {worst[1]} off by "
+                                 f"{worst[0]:.2e}")
+        del shard, grads, part
+    if any(t["gap"] != 0.0 for t in ties):
+        raise AssertionError(f"selection flips without an exact tie: {ties}")
+    out_rel = ((total - y.detach()).abs().max() / y.abs().max()).item()
+    log(f"  sum of the {m} shards vs the unsharded layer: {out_rel:.2e} "
+        f"relative; selection differences {len(ties)} (all exact ties)")
+    if not out_rel <= 1e-5:
+        raise AssertionError(f"shards sum off by {out_rel:.2e}")
+    res.update(out_rel=out_rel, ties=ties)
+    return res
+
+
+def compress_slice(torch, grads):
+    """[32]: ``compressed_all_reduce`` of the last [30] step's gradients on
+    its NCCL group (world 1): per scheme, kept + residual is the gradient
+    bit for bit and the reduction is kept; CUDA-event times of the
+    compression and of the all-reduce."""
+    from repro_torch.optim import grad_compression as gc
+    n = sum(g.numel() for g in grads.values())
+    out = {"values": n}
+
+    def timed(fn):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        r = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return r, s.elapsed_time(e)
+
+    _, out["none_ms"] = timed(lambda: gc.compressed_all_reduce(grads))
+    for scheme in ("topk", "int8"):
+        comp = ((lambda g: gc.topk_compress(g, COMPRESS_FRAC))
+                if scheme == "topk" else gc.int8_compress)
+        pairs, c_ms = timed(lambda: {k: comp(g) for k, g in grads.items()})
+        kept = {k: p[0] for k, p in pairs.items()}
+        (red, res), total_ms = timed(lambda: gc.compressed_all_reduce(
+            grads, None, scheme, topk_frac=COMPRESS_FRAC))
+        exact = all(torch.equal(kept[k] + res[k], grads[k]) for k in grads)
+        same = all(torch.equal(red[k], kept[k]) for k in grads)
+        nonzero = sum(int((kept[k] != 0).sum()) for k in grads)
+        log(f"  {scheme}: compression {c_ms:.2f} ms, compression + "
+            f"all-reduce {total_ms:.2f} ms over {n} values; kept + "
+            f"residual == g bitwise: {exact}; reduction == kept: {same}; "
+            f"{nonzero} values kept nonzero")
+        if not (exact and same):
+            raise AssertionError(f"{scheme}: kept + residual {exact}, "
+                                 f"reduction {same}")
+        out[scheme] = dict(compress_ms=c_ms, compress_all_reduce_ms=total_ms,
+                           kept_nonzero=nonzero)
+        del pairs, kept, red, res
+    log(f"  plain all-reduce of the {n} values: {out['none_ms']:.2f} ms")
+    return out
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -3345,6 +3640,15 @@ def main():
     log("[29] main path: training under each remat policy at full width")
     remat = remat_slice(torch)
 
+    log("[30] main path: [8]'s training on a one-rank mesh (NCCL, world 1)")
+    mesh_trainer, last_grads, dist_res = mesh_train_slice(torch, train)
+    log("[31] tensor-parallel MoSA: layer 0 as 4 rank-local shards")
+    dist_res["shards"] = tp_shards_slice(torch)
+    log("[32] compressed all-reduce of [30]'s last gradients (NCCL)")
+    dist_res["compress"] = compress_slice(torch, last_grads)
+    del mesh_trainer, last_grads
+    torch.distributed.destroy_process_group()
+
     sweep["kernel_cases"] = {
         name: {**times[name], "max_abs_err": errs[name]}
         for name in (f"mosa_attention_fwd_res[{SWEEP_MOSA8_NAME}]",
@@ -3422,6 +3726,7 @@ def main():
     print(json.dumps({"sweep": sweep}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"remat": remat}))
+    print(json.dumps({"dist": dist_res}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,11 @@ import torch
 
 
 def _host(x) -> np.ndarray:
+    """A host copy: the caller may change ``x`` in place once ``save``
+    returns (a numpy leaf can be a view of a live CPU tensor)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy().copy()
-    return np.asarray(x)
+    return np.array(x, copy=True)
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:

@@ -18,6 +18,13 @@
     ``paged_prefill_attention`` (CUDA kernels on the card); the window
     rings' prefill and decode are plain PyTorch, as in the JAX package.
     MLA is not ported yet.
+
+On a mesh (``tp`` set by ``dist.parallel.shard_model``) a rank holds the
+columns ``q_cols`` of the fused ``n_heads * d_head`` dim of ``wq`` and the
+same rows of ``wo``, and ``kv_cols`` of ``wk`` / ``wv`` (None: replicated);
+``local_forward`` computes the heads those columns touch and returns this
+rank's share of the output (its rows of ``wo``), which ``forward`` sums
+over ``model``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from torch import nn
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache, scatter_kept
+from repro_torch.dist.parallel import copy_to, gather_last, reduce_from
+from repro_torch.dist.sharding import logical
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn.layers import param, trunc_normal_
 from repro_torch.serve.paged_attention import (paged_attention_decode,
@@ -165,6 +174,17 @@ class MultiHeadAttention(nn.Module):
             self.bq = param((c.n_heads * c.d_head,), param_dtype, device)
             self.bk = param((c.n_kv_heads * c.d_head,), param_dtype, device)
             self.bv = param((c.n_kv_heads * c.d_head,), param_dtype, device)
+        self.tp, self.q_cols, self.kv_cols = None, None, None
+
+    def specs(self):
+        s = {"wq": logical("embed", "heads"),
+             "wk": logical("embed", "kv_heads"),
+             "wv": logical("embed", "kv_heads"),
+             "wo": logical("heads", "embed")}
+        if self.cfg.qkv_bias:
+            s.update(bq=logical("heads"), bk=logical("kv_heads"),
+                     bv=logical("kv_heads"))
+        return s
 
     @property
     def _scale(self):
@@ -193,9 +213,9 @@ class MultiHeadAttention(nn.Module):
             q = q + self.bq.float()
             k = k + self.bk.float()
             v = v + self.bv.float()
-        q = q.to(cd).reshape(B, T, c.n_heads, c.d_head).transpose(1, 2)
-        k = k.to(cd).reshape(B, T, c.n_kv_heads, c.d_head).transpose(1, 2)
-        v = v.to(cd).reshape(B, T, c.n_kv_heads, c.d_head).transpose(1, 2)
+        q = q.to(cd).reshape(B, T, -1, c.d_head).transpose(1, 2)
+        k = k.to(cd).reshape(B, T, -1, c.d_head).transpose(1, 2)
+        v = v.to(cd).reshape(B, T, -1, c.d_head).transpose(1, 2)
         return q, k, v
 
     def _rope(self, t, positions):
@@ -228,6 +248,10 @@ class MultiHeadAttention(nn.Module):
         document; packed rows take the masked chunked path with either
         ``impl``.  ``impl="kernel"`` is forward-only: under autograd it
         raises."""
+        if self.tp is not None:
+            return reduce_from(self.local_forward(copy_to(x, self.tp),
+                                                  positions, segments),
+                               self.tp)
         c = self.cfg
         B, T, _ = x.shape
         if positions is None:
@@ -235,14 +259,71 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self._qkv(x)
         q = self._rope(q, positions)
         k = self._rope(k, positions)
+        return self._out(self._heads_attention(q, k, v, positions, segments))
+
+    def _heads_attention(self, q, k, v, positions, segments):
+        c = self.cfg
+        B, _, T, _ = q.shape
         if segments is None:
             out = self._attend(q, k, v, positions)
         else:
-            packed = torch.arange(T, device=x.device).expand(B, T)
+            packed = torch.arange(T, device=q.device).expand(B, T)
             out = chunked_attention(q, k, v, packed, packed, self._scale,
                                     window=c.window, chunk=CHUNK,
                                     q_seg=segments, k_seg=segments)
-        return self._out(out)
+        return out
+
+    def _tp_proj(self, x, w, b, cols):
+        """x @ w (+ b) in fp32 on a mesh: a replicated weight (``cols`` is
+        None) enters the tensor-parallel region through ``copy_to``."""
+        cd = self.compute_dtype
+        if cols is None:
+            w = copy_to(w, self.tp)
+            b = None if b is None else copy_to(b, self.tp)
+        y = (x @ w.to(cd)).float()
+        return y if b is None else y + b.float()
+
+    def local_forward(self, x, positions=None, segments=None):
+        """This rank's share of the output on a mesh (before the sum over
+        ``model``): the whole heads that its ``q_cols`` touch (all-gathered
+        over ``model`` where the slice cuts a head), each with the kv head
+        of its group, then its columns of their output through its rows of
+        ``wo``.  ``x`` is already inside the tensor-parallel region."""
+        c, cd, tp = self.cfg, self.compute_dtype, self.tp
+        B, T, _ = x.shape
+        d, R = c.d_head, c.n_heads // c.n_kv_heads
+        if positions is None:
+            positions = torch.arange(T, device=x.device).expand(B, T)
+        xc = x.to(cd)
+        bias = c.qkv_bias
+        q = self._tp_proj(xc, self.wq, self.bq if bias else None,
+                          self.q_cols)
+        k = self._tp_proj(xc, self.wk, self.bk if bias else None,
+                          self.kv_cols)
+        v = self._tp_proj(xc, self.wv, self.bv if bias else None,
+                          self.kv_cols)
+        qa, qb = self.q_cols
+        h0, h1 = qa // d, -(-qb // d)
+        if qa % d or qb % d:                     # the slice cuts a head
+            q = gather_last(q, tp)[..., h0 * d:h1 * d]
+        g0, g1 = h0 // R, (h1 - 1) // R + 1      # kv heads of these groups
+        ka, kb = self.kv_cols or (0, k.shape[-1])
+        if not ka <= g0 * d < g1 * d <= kb:      # some are another rank's
+            k, v = gather_last(k, tp), gather_last(v, tp)
+            ka = 0
+        k, v = (t[..., g0 * d - ka:g1 * d - ka] for t in (k, v))
+        q = q.to(cd).reshape(B, T, h1 - h0, d).transpose(1, 2)
+        k = k.to(cd).reshape(B, T, g1 - g0, d).transpose(1, 2)
+        v = v.to(cd).reshape(B, T, g1 - g0, d).transpose(1, 2)
+        if h0 % R or h1 % R:                     # groups cut: one kv per q
+            grp = torch.arange(h0, h1, device=x.device) // R - g0
+            k, v = k[:, grp], v[:, grp]
+        q = self._rope(q, positions)
+        k = self._rope(k, positions)
+        out = self._heads_attention(q, k, v, positions, segments)
+        out = out.transpose(1, 2).reshape(B, T, (h1 - h0) * d)
+        out = out[..., qa - h0 * d:qb - h0 * d]
+        return out.to(cd) @ self.wo.to(cd)
 
     # ---- serving ----
     def prefill(self, x, cache, positions=None, valid=None):

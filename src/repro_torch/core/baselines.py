@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.mosa import _gather_tokens, _scatter_heads
 from repro_torch.core.router import selection_mask, topk_indices
+from repro_torch.dist.sharding import logical
 from repro_torch.nn.layers import param, trunc_normal_
 
 NEG_INF = -1e30
@@ -73,6 +74,12 @@ class FixedSparseAttention(nn.Module):
             trunc_normal_(w, std, generator)
         trunc_normal_(self.wo, self.d_head ** -0.5, generator)
 
+    def specs(self):
+        return {"wq": logical("mosa_heads", "embed", None),
+                "wk": logical("mosa_heads", "embed", None),
+                "wv": logical("mosa_heads", "embed", None),
+                "wo": logical("mosa_heads", None, "embed")}
+
     def forward(self, x, positions=None, segments=None):
         """x: (B, T, h) -> (B, T, h).  ``positions`` is ignored (RoPE at
         the selected indices), as in the JAX layer; packed rows are not
@@ -82,7 +89,7 @@ class FixedSparseAttention(nn.Module):
                                       "rows (train-only, as in JAX)")
         cd = self.compute_dtype
         B, T, h = x.shape
-        H, d = self.n_heads, self.d_head
+        H, d = self.wq.shape[0], self.d_head     # this rank's heads on a mesh
         k = max(T // self.sparsity, 2)
         idx = fixed_indices(T, k, (B, H), x.device)             # (B, H, k)
         xs = _gather_tokens(x.to(cd), idx)                       # (B, H, k, h)
@@ -128,6 +135,12 @@ class RoutingAttention(nn.Module):
         trunc_normal_(self.wo, self.d_head ** -0.5, generator)
         trunc_normal_(self.centroids, 1.0, generator)
 
+    def specs(self):
+        return {"wqk": logical("mosa_heads", "embed", None),
+                "wv": logical("mosa_heads", "embed", None),
+                "wo": logical("mosa_heads", None, "embed"),
+                "centroids": logical("mosa_heads", None, None)}
+
     def _cluster_select(self, qk, k: int):
         """qk: (B, H, T, d) normalized fp32 -> idx (B, H, rho, k): each
         cluster's k most similar tokens (ties: lower index first, as
@@ -155,7 +168,7 @@ class RoutingAttention(nn.Module):
                                       "rows (train-only, as in JAX)")
         cd = self.compute_dtype
         B, T, h = x.shape
-        H, d, rho = self.n_heads, self.d_head, self.sparsity
+        H, d, rho = self.wqk.shape[0], self.d_head, self.sparsity
         k = max(T // rho, 2)
         with torch.no_grad():        # the selection carries no gradient
             qk = self._normalized_qk(x)

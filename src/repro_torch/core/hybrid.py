@@ -17,6 +17,15 @@ cache is then ``MoSABlockKVCache``); the dense side's serving cache is a
 window ring (``WindowKVCache`` / ``PagedWindowKVCache``) when
 ``local_window > 0``.  ``dense_impl`` picks the dense side's full-forward
 attention (``"chunked"`` or ``"kernel"``, the flash kernel #9).
+
+On a mesh (``dist.parallel.shard_model``) a head-sharded side holds its
+slice of the heads: ``local_forward`` returns this rank's share of the
+layer (its MoSA heads scatter-added into the sequence, plus its dense
+heads' share), one all-reduce over ``model`` sums the shares, and a side
+whose heads are replicated (a head count that ``model`` does not divide)
+is computed on every rank and added once, after the sum.  The gated form
+sums each side's shares apart (one all-reduce of both) and gates the
+sums: the gates are replicated.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from repro_torch.core.baselines import FixedSparseAttention, RoutingAttention
 from repro_torch.core.kv_cache import (DenseKVCache, MoSABlockKVCache,
                                       MoSAKVCache, WindowKVCache)
 from repro_torch.core.mosa import MoSAAttention
+from repro_torch.dist.parallel import copy_to, reduce_from
+from repro_torch.dist.sharding import logical
 from repro_torch.nn.layers import param
 from repro_torch.serve.paged_kv import (PagedConfig, PagedDenseKVCache,
                                         PagedWindowKVCache)
@@ -73,6 +84,17 @@ class HybridAttention(nn.Module):
             self.dense = None
         if self._gated():
             self.gate = param((d_model, 2), param_dtype, device)
+        # on a mesh: the ``model`` group, and whether the sparse side's
+        # heads are sharded (the dense side's placement is its own)
+        self.tp, self.sparse_sharded = None, False
+
+    def specs(self):
+        s = {f"sparse.{k}": v for k, v in self.sparse.specs().items()}
+        if self.dense is not None:
+            s.update({f"dense.{k}": v for k, v in self.dense.specs().items()})
+        if self._gated():
+            s["gate"] = logical("embed", None)
+        return s
 
     @property
     def dense_impl(self) -> str:
@@ -117,17 +139,65 @@ class HybridAttention(nn.Module):
         """x: (B, T, h) -> the combined sparse and dense heads' outputs.
         ``segments``: optional (B, T) document ids of packed rows (both
         sides mask cross-document attention)."""
+        if self.tp is not None:
+            return self._mesh_forward(x, positions, segments)
         y = self.sparse(x, positions, segments=segments)
         yd = (None if self.dense is None
               else self.dense(x, positions, segments))
         return self._combine(x, y, yd)
 
-    def router_health(self, x):
+    def _dense_sharded(self) -> bool:
+        return self.dense is not None and self.dense.tp is not None
+
+    def _local_sides(self, x, positions=None, segments=None):
+        """(sparse share, dense share) of this rank, None for a side whose
+        heads are replicated; ``x`` is inside the tensor-parallel region."""
+        ys = (self.sparse(x, positions, segments=segments)
+              if self.sparse_sharded else None)
+        yd = (self.dense.local_forward(x, positions, segments)
+              if self._dense_sharded() else None)
+        return ys, yd
+
+    def local_forward(self, x, positions=None, segments=None):
+        """This rank's share of the layer on a mesh, before the all-reduce
+        over ``model``: the sum of its head-sharded sides' shares (the
+        replicated sides are not in it)."""
+        ys, yd = self._local_sides(x, positions, segments)
+        if ys is None or yd is None:
+            return ys if yd is None else yd
+        return ys + yd
+
+    def _mesh_forward(self, x, positions=None, segments=None):
+        ys, yd = self._local_sides(copy_to(x, self.tp), positions, segments)
+        if self._gated():
+            summed = iter(reduce_from(torch.stack(
+                [t for t in (ys, yd) if t is not None]), self.tp))
+            ys = (next(summed) if ys is not None
+                  else self.sparse(x, positions, segments=segments))
+            yd = (next(summed) if yd is not None
+                  else self.dense(x, positions, segments))
+            return self._combine(x, ys, yd)
+        share = ys if yd is None else (yd if ys is None else ys + yd)
+        y = reduce_from(share, self.tp)          # the sharded sides, summed
+        if not self.sparse_sharded:              # replicated: added once
+            return self._combine(
+                x, self.sparse(x, positions, segments=segments), y)
+        if self.dense is not None and not self._dense_sharded():
+            return self._combine(x, y, self.dense(x, positions, segments))
+        return y
+
+    def router_health(self, x, rows_sum=None):
         """Expert-choice health of the sparse side (train telemetry); None
-        for the fixed / routing baselines, which have no learned router."""
+        for the fixed / routing baselines, which have no learned router.
+        On a mesh the selection counts are summed over this layer's head
+        shards and, through ``rows_sum``, over the data-parallel rows."""
         if self.variant != "mosa":
             return None
-        return self.sparse.router_health(x)
+        heads_sum = None
+        if self.tp is not None and self.sparse_sharded:
+            heads_sum = lambda t: reduce_from(t, self.tp)   # noqa: E731
+        return self.sparse.router_health(x, heads_sum=heads_sum,
+                                         rows_sum=rows_sum)
 
     def _serving(self):
         if self.variant != "mosa":

@@ -31,6 +31,11 @@ chunk, unpacked per segment into ``prefill_past``) and the streaming
 ``decode_step``, each for either granularity.  The suffix attention of
 ``prefill_past`` and the decode attention are einsums, as in the JAX
 package (no Pallas kernel there).
+
+On a mesh the module holds a slice of the heads (``router.w``, ``wq``,
+``wk``, ``wv``, ``wo`` cut on their leading ``mosa_heads`` dim by
+``dist.parallel.shard_model``) and its forward, unchanged, returns the
+scatter-add of those heads alone: the caller sums the ranks' shares.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from repro_torch.core.router import (ExpertChoiceRouter, block_pool_scores,
                                      expand_block_index, router_health_stats,
                                      select_topk, selection_mask,
                                      streaming_topk_update, topk_indices)
+from repro_torch.dist.sharding import logical
 from repro_torch.kernels import mosa_attention as kmosa
 from repro_torch.kernels import mosa_block as kblock
 from repro_torch.nn.layers import param, trunc_normal_
@@ -114,6 +120,13 @@ class MoSAAttention(nn.Module):
         trunc_normal_(self.wk, std, generator)
         trunc_normal_(self.wv, std, generator)
         trunc_normal_(self.wo, self.cfg.d_head ** -0.5, generator)
+
+    def specs(self):
+        return {**{f"router.{k}": v for k, v in self.router.specs().items()},
+                "wq": logical("mosa_heads", "embed", None),
+                "wk": logical("mosa_heads", "embed", None),
+                "wv": logical("mosa_heads", "embed", None),
+                "wo": logical("mosa_heads", None, "embed")}
 
     def k_for(self, T: int) -> int:
         """Paper §3.5: k = max(floor(T / rho), min_k), capped at T; constant
@@ -215,7 +228,7 @@ class MoSAAttention(nn.Module):
         (positions -1 dropped).  ``force_first_token`` forces block 0."""
         c, cd = self.cfg, self.compute_dtype
         B, T, h = x.shape
-        H, bs = c.n_mosa_heads, c.sel_block_size
+        H, bs = self.wq.shape[0], c.sel_block_size   # this rank's heads
         kb = self.kb_for(T)
 
         scores = self.router.scores(x)                        # (B, H, T)
@@ -272,20 +285,22 @@ class MoSAAttention(nn.Module):
                            v.float())
         return att * r_tok[..., None] * ok[..., None]
 
-    def router_health(self, x):
+    def router_health(self, x, heads_sum=None, rows_sum=None):
         """Router health of this layer's selection on input ``x`` (see
-        ``router_health_stats``).  Block choice is scored in block space:
-        entropy over the blocks, drop rate of blocks no head selects."""
+        ``router_health_stats``; ``heads_sum`` / ``rows_sum`` on a mesh).
+        Block choice is scored in block space: entropy over the blocks,
+        drop rate of blocks no head selects."""
         T = x.shape[1]
         scores = self.router.scores(x)
         if self.cfg.selection_granularity == "block":
             bsc = block_pool_scores(scores, self.cfg.sel_block_size)
             r, bidx = select_topk(bsc, self.kb_for(T),
                                   self.cfg.force_first_token)
-            return router_health_stats(r, bidx, bsc.shape[-1])
+            return router_health_stats(r, bidx, bsc.shape[-1], heads_sum,
+                                       rows_sum)
         r, idx = select_topk(scores, self.k_for(T),
                              self.cfg.force_first_token)
-        return router_health_stats(r, idx, T)
+        return router_health_stats(r, idx, T, heads_sum, rows_sum)
 
     # --------------------------------------------------------------- serving
     def prefill(self, x, cache: MoSAKVCache, positions=None, valid=None):

@@ -21,6 +21,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import logical
 from repro_torch.nn.layers import param, trunc_normal_
 
 
@@ -33,6 +34,9 @@ class ExpertChoiceRouter(nn.Module):
 
     def init(self, generator: torch.Generator):
         trunc_normal_(self.w, self.d_model ** -0.5, generator)
+
+    def specs(self):
+        return {"w": logical("mosa_heads", "embed")}
 
     def scores(self, x):
         """x: (B, T, h) -> sigmoid scores (B, H, T) in fp32."""
@@ -64,7 +68,7 @@ def select_topk(scores, k: int, force_first: bool = True):
     return r, idx
 
 
-def router_health_stats(r, idx, T: int):
+def router_health_stats(r, idx, T: int, heads_sum=None, rows_sum=None):
     """Health of one expert-choice selection (train-loop telemetry), as
     ``repro.core.router.router_health_stats``.  r, idx: (B, H, k) from
     ``select_topk`` over (B, H, T) scores.  Returns 0-d fp32 tensors:
@@ -74,15 +78,32 @@ def router_health_stats(r, idx, T: int):
         few tokens: router collapse);
       * ``drop_rate``   — fraction of tokens selected by no head (they get
         no sparse output and no router gradient this step);
-      * ``head_util``   — mean router score over selected tokens."""
+      * ``head_util``   — mean router score over selected tokens.
+
+    On a mesh, where a rank holds some heads of some rows, ``heads_sum``
+    and ``rows_sum`` sum a tensor over the ranks that hold the other heads
+    and the other rows: the counts of selections per token are exact, so
+    the entropy and the drop rate equal one device's."""
     B, H, k = idx.shape
     sel = torch.zeros((B, H, T), dtype=torch.float32, device=idx.device)
     sel.scatter_add_(-1, idx.long(), torch.ones_like(sel[..., :k]))
-    drop_rate = (sel.sum(1) == 0).float().mean()
-    p = sel.sum((0, 1)) / (B * H * k)
+    heads_sum = heads_sum or (lambda t: t)
+    rows_sum = rows_sum or (lambda t: t)
+    # one sum over the head shards, one over the rows (no host data: the
+    # counts are filled on the device)
+    hs = heads_sum(torch.cat([sel.sum(1).reshape(-1), r.float().sum()[None],
+                              r.new_full((1,), float(B * H * k))]))
+    count = hs[:B * T].reshape(B, T)                    # over all heads
+    sums = rows_sum(torch.cat([count.sum(0), (count == 0).float().sum()[None],
+                               hs[B * T:], r.new_full((1,), float(B * T))]))
+    p_num, dropped, r_sum, n_sel, n_tok = (
+        sums[:T], sums[T], sums[T + 1], sums[T + 2], sums[T + 3])
+    drop_rate = dropped / n_tok
+    p = p_num / n_sel
+    head_util = r_sum / n_sel
     ent = -torch.where(p > 0, p * torch.log(p.clamp_min(1e-20)), 0.0).sum()
     return {"sel_entropy": ent / math.log(float(max(T, 2))),
-            "drop_rate": drop_rate, "head_util": r.float().mean()}
+            "drop_rate": drop_rate, "head_util": head_util}
 
 
 def selection_mask(idx_q, idx_k):

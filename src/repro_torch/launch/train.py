@@ -7,16 +7,26 @@
   PYTHONPATH=src python -m repro_torch.launch.train --isoflop \\
       --preset smoke --device cpu --steps 2 --batch 2 --seq 64
 
+  # on a mesh: one process per device, the mesh from elastic_plan
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.train --preset smoke \
+      --variant mosa --rule-set fsdp_tp --steps 4
+
 Runs on the card unless ``--device`` names another device, and raises
-without CUDA.  The flags are ``repro.launch.train``'s, without
-``--rule-set`` (no mesh yet) and with ``--device``; ``--mosa-impl kernel``
-takes the hand-written MoSA kernels (their plain versions on the CPU).
+without CUDA (``--device cpu`` under ``torch.distributed.run`` takes
+gloo).  The flags are ``repro.launch.train``'s, with ``--device``;
+``--rule-set`` places the parameters on the mesh (``tp`` or ``fsdp_tp``)
+that a world above 1 brings; ``--mosa-impl kernel`` takes the
+hand-written MoSA kernels (their plain versions on the CPU).  The final
+JSON carries the straggler monitor's summary.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+import torch
 
 from repro_torch.train.loop import TrainConfig, Trainer
 
@@ -35,6 +45,7 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=100)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=200)
+    p.add_argument("--rule-set", default="tp", choices=["tp", "fsdp_tp"])
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--microbatch", type=int, default=1,
                    help="gradient-accumulation splits per step")
@@ -92,6 +103,7 @@ def main(argv=None):
                       global_batch=args.batch, seq_len=args.seq, lr=args.lr,
                       warmup=args.warmup, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, log_every=args.log_every,
+                      rule_set=args.rule_set,
                       arch_kwargs=akw, microbatch=args.microbatch,
                       compute=args.compute, remat=args.remat,
                       mosa_impl=args.mosa_impl,
@@ -100,7 +112,11 @@ def main(argv=None):
                       trace_path=args.trace_path, device=args.device)
     trainer = Trainer(cfg)
     _, _, history = trainer.run()
-    print(json.dumps({"final": history[-1] if history else None}))
+    if trainer.rank == 0:
+        print(json.dumps({"final": history[-1] if history else None,
+                          "straggler": trainer.monitor.summary()}))
+    if trainer.mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Dense feed-forward block (SwiGLU / GELU), ported from ``repro.nn.ffn.MLP``.
 
-GELU is the tanh approximation, as ``jax.nn.gelu``'s default.  The
+GELU is the tanh approximation, as ``jax.nn.gelu``'s default.  On a mesh
+(``tp`` set by ``dist.parallel.shard_model``) the input projection is
+column-parallel and the output projection row-parallel: one all-reduce.  The
 token-choice MoE (``repro.nn.ffn.MoEFFN``) is not ported yet.
 """
 
@@ -10,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.parallel import copy_to, reduce_from
+from repro_torch.dist.sharding import logical
 from repro_torch.nn.layers import param, trunc_normal_
 
 
@@ -29,6 +33,7 @@ class MLP(nn.Module):
         else:
             self.w_in = param((d_model, d_ff), param_dtype, device)
             self.w_out = param((d_ff, d_model), param_dtype, device)
+        self.tp = None
 
     def init(self, generator: torch.Generator):
         std_in, std_out = self.d_model ** -0.5, self.d_ff ** -0.5
@@ -40,7 +45,20 @@ class MLP(nn.Module):
             trunc_normal_(self.w_in, std_in, generator)
             trunc_normal_(self.w_out, std_out, generator)
 
+    def specs(self):
+        if self.act == "swiglu":
+            return {"w_gate": logical("embed", "mlp"),
+                    "w_up": logical("embed", "mlp"),
+                    "w_down": logical("mlp", "embed")}
+        return {"w_in": logical("embed", "mlp"),
+                "w_out": logical("mlp", "embed")}
+
     def forward(self, x):
+        if self.tp is None:
+            return self._local(x)
+        return reduce_from(self._local(copy_to(x, self.tp)), self.tp)
+
+    def _local(self, x):
         cd = self.compute_dtype
         x = x.to(cd)
         if self.act == "swiglu":

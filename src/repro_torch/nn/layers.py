@@ -5,13 +5,18 @@ layouts (``Linear.w`` is ``(d_in, d_out)``), so a converted parameter tree
 loads with ``load_state_dict``.  Parameters live in ``param_dtype``; matmuls
 run in ``compute_dtype``.  Modules are built with empty parameters on an
 explicit ``device``; ``init(generator)`` fills them from a
-``torch.Generator``.
+``torch.Generator``.  ``specs()`` names the logical axes of each parameter,
+as the JAX modules' (``repro_torch.dist.sharding`` resolves them on a
+mesh); a module's ``specs()`` is keyed like its ``state_dict``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.dist.parallel import reduce_from
+from repro_torch.dist.sharding import logical
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
@@ -30,9 +35,14 @@ def param(shape, dtype, device) -> nn.Parameter:
 class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, bias: bool = False,
                  param_dtype=torch.float32, compute_dtype=torch.float32,
-                 std: float | None = None, device=None):
+                 std: float | None = None, in_axis: str | None = None,
+                 out_axis: str | None = None, device=None):
         super().__init__()
         self.d_in, self.d_out = d_in, d_out
+        self.in_axis, self.out_axis = in_axis, out_axis
+        # on a mesh (``dist.parallel.shard_model``): the vocabulary slice
+        # that this rank's ``w`` holds when ``out_axis`` is "vocab"
+        self.tp, self.vocab_range = None, None
         self.compute_dtype = compute_dtype
         self.std = std if std is not None else d_in ** -0.5
         self.w = param((d_in, d_out), param_dtype, device)
@@ -42,6 +52,12 @@ class Linear(nn.Module):
         trunc_normal_(self.w, self.std, generator)
         if self.b is not None:
             nn.init.zeros_(self.b)
+
+    def specs(self):
+        s = {"w": logical(self.in_axis, self.out_axis)}
+        if self.b is not None:
+            s["b"] = logical(self.out_axis)
+        return s
 
     def forward(self, x):
         cd = self.compute_dtype
@@ -57,12 +73,24 @@ class Embedding(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.table = param((vocab, dim), param_dtype, device)
+        # on a mesh: the vocabulary rows [lo, hi) that this rank holds
+        self.tp, self.vocab_range = None, None
 
     def init(self, generator: torch.Generator):
         trunc_normal_(self.table, 1.0, generator)
 
+    def specs(self):
+        return {"table": logical("vocab", "embed")}
+
     def forward(self, ids):
-        return self.table.to(self.compute_dtype)[ids]
+        if self.tp is None:
+            return self.table.to(self.compute_dtype)[ids]
+        # vocab-parallel lookup: this rank's rows, zeros elsewhere, summed
+        lo, hi = self.vocab_range
+        local = ids - lo
+        ok = (local >= 0) & (local < hi - lo)
+        rows = self.table.to(self.compute_dtype)[local.clamp(0, hi - lo - 1)]
+        return reduce_from(torch.where(ok[..., None], rows, 0.0), self.tp)
 
     def attend(self, x):
         """Tied unembedding: logits = x @ table.T in fp32."""
@@ -80,6 +108,9 @@ class RMSNorm(nn.Module):
 
     def init(self, generator: torch.Generator):
         nn.init.ones_(self.scale)
+
+    def specs(self):
+        return {"scale": logical(None)}
 
     def forward(self, x):
         xf = x.float()
@@ -100,6 +131,9 @@ class LayerNorm(nn.Module):
     def init(self, generator: torch.Generator):
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.bias)
+
+    def specs(self):
+        return {"scale": logical(None), "bias": logical(None)}
 
     def forward(self, x):
         xf = x.float()

@@ -18,6 +18,15 @@ the JAX package builds them: ``attn`` drops a configured window,
 ``attn_local`` defaults it to 1024); FFN: ``dense``.  A window attention
 layer serves from a window ring (``WindowKVCache``, or
 ``PagedWindowKVCache`` under a ``PagedConfig``).
+
+``specs()`` names the logical axes of every parameter, keyed like the
+``state_dict`` (the JAX ``specs()`` tree with its scan units unstacked).
+On a mesh (``dist.parallel.shard_model``; ``mesh`` holds the
+``MeshContext``) the modules compute on their shards, the loss takes the
+logsumexp and the gold logit across the vocabulary slices, and
+``loss(denom=...)`` divides by the mask count of the whole microbatch
+across the data-parallel ranks, so that the ranks' losses sum to one
+device's.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.attention import MultiHeadAttention
 from repro_torch.core.hybrid import HybridAttention
 from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache
+from repro_torch.dist.parallel import (copy_to, gather_last, logsumexp,
+                                       reduce_from)
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.remat import remat
@@ -117,6 +128,11 @@ class Block(nn.Module):
         for m in (self.norm1, self.mixer, self.norm2, self.ffn):
             m.init(generator)
 
+    def specs(self):
+        return {f"{name}.{k}": v
+                for name in ("norm1", "mixer", "norm2", "ffn")
+                for k, v in getattr(self, name).specs().items()}
+
     def _ffn(self, x):
         return x + self.ffn(self.norm2(x))
 
@@ -197,7 +213,9 @@ class TransformerLM(nn.Module):
                                compute_dtype=c.cdtype, device=device)
         self.unembed = (None if c.tie_embeddings else
                         Linear(c.d_model, c.vocab, param_dtype=c.pdtype,
-                               compute_dtype=c.cdtype, device=device))
+                               compute_dtype=c.cdtype, in_axis="embed",
+                               out_axis="vocab", device=device))
+        self.mesh = None        # a dist.parallel.MeshContext on a mesh
 
     def init(self, generator: torch.Generator):
         """Fill every parameter from ``generator`` (random weights; they
@@ -210,11 +228,52 @@ class TransformerLM(nn.Module):
             self.unembed.init(generator)
         return self
 
+    def specs(self) -> dict:
+        """Logical axes of every parameter, keyed like the state_dict."""
+        out = {f"embed.{k}": v for k, v in self.embed.specs().items()}
+        for i, layer in enumerate(self.layers):
+            out.update({f"layers.{i}.{k}": v
+                        for k, v in layer.specs().items()})
+        out.update({f"final_norm.{k}": v
+                    for k, v in self.final_norm.specs().items()})
+        if self.unembed is not None:
+            out.update({f"unembed.{k}": v
+                        for k, v in self.unembed.specs().items()})
+        return out
+
+    def _vocab_owner(self):
+        return self.embed if self.cfg.tie_embeddings else self.unembed
+
     def _logits(self, x):
+        """fp32 logits; on a mesh with the vocabulary sharded, this rank's
+        slice of them."""
         c = self.cfg
+        x = copy_to(x, self._vocab_owner().tp)
         if c.tie_embeddings:
             return self.embed.attend(x)
         return (x.to(c.cdtype) @ self.unembed.w.to(c.cdtype)).float()
+
+    def _full_logits(self, x):
+        logits = self._logits(x)
+        tp = self._vocab_owner().tp
+        return logits if tp is None else gather_last(logits, tp)
+
+    def _nll(self, logits, labels):
+        """Per-token negative log-likelihood (labels clamped at 0): the
+        logsumexp and the gold logit over the vocabulary slices on a
+        mesh, never the gathered logits."""
+        owner = self._vocab_owner()
+        gold_ix = labels.clamp_min(0).long()[..., None]
+        if owner.tp is None:
+            gold = torch.gather(logits, -1, gold_ix)[..., 0]
+            return torch.logsumexp(logits, -1) - gold
+        lo, hi = owner.vocab_range
+        lse = logsumexp(logits, owner.tp)
+        local = gold_ix - lo
+        ok = (local >= 0) & (local < hi - lo)
+        gold = torch.gather(logits, -1, local.clamp(0, hi - lo - 1))
+        gold = reduce_from(torch.where(ok, gold, 0.0)[..., 0], owner.tp)
+        return lse - gold
 
     # -------------------------------------------------------------- training
     HEALTH_KEYS = ("sel_entropy", "drop_rate", "head_util")
@@ -240,7 +299,10 @@ class TransformerLM(nn.Module):
         for layer in self.layers:
             if collect_health and layer.spec.mixer == "mosa":
                 with torch.no_grad():
-                    s = layer.mixer.router_health(layer.norm1(x))
+                    s = (layer.mixer.router_health(layer.norm1(x))
+                         if self.mesh is None else
+                         layer.mixer.router_health(layer.norm1(x),
+                                                   self._rows_sum()))
                 if s is not None:       # None: a baseline, no router
                     totals = {k: totals.get(k, 0.0) + s[k]
                               for k in self.HEALTH_KEYS}
@@ -250,6 +312,14 @@ class TransformerLM(nn.Module):
         if not collect_health:
             return x, aux
         return x, aux, {k: v / n_routed for k, v in totals.items()}
+
+    def _rows_sum(self):
+        """Sums a tensor over the data-parallel ranks (router health on a
+        mesh); None off a mesh."""
+        ctx = self.mesh
+        if ctx is None:
+            return None
+        return lambda t: ctx.all_reduce(t.contiguous(), ctx.dp_axes)
 
     def _forward(self, tokens, positions=None, segments=None,
                  collect_health: bool = False):
@@ -263,24 +333,28 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, positions=None, segments=None):
         """tokens (B, T) -> (logits fp32 (B, T, vocab), aux loss)."""
-        logits, aux, _ = self._forward(tokens, positions, segments)
-        return logits, aux
+        x, aux = self.backbone(self.embed(tokens), positions, segments)
+        return self._full_logits(self.final_norm(x)), aux
 
-    def loss(self, batch, with_health: bool = False):
+    def loss(self, batch, with_health: bool = False, denom=None):
         """batch: {"tokens" (B, T), "labels" (B, T)}, labels < 0 masked;
         packed rows add "segments" (B, T) document ids and per-document
         "positions".  Returns (loss, metrics) with metrics ``ce``, ``aux``,
         ``ppl`` and ``tokens`` (0-d tensors), plus the router health keys
-        when ``with_health``."""
+        when ``with_health``.  ``denom``: the mask count to divide by (on
+        a mesh, the whole microbatch's across the data-parallel ranks;
+        default this batch's)."""
         labels = batch["labels"]
         logits, aux, health = self._forward(
             batch["tokens"], batch.get("positions"), batch.get("segments"),
             collect_health=with_health)
         logits = logits.float()
         mask = (labels >= 0).float()
-        gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
-        nll = (torch.logsumexp(logits, -1) - gold[..., 0]) * mask
-        denom = mask.sum().clamp_min(1.0)
+        nll = self._nll(logits, labels) * mask
+        if denom is None:
+            denom = mask.sum().clamp_min(1.0)
+        elif self.mesh is not None:     # a share of the dp ranks' mean
+            aux = aux / self.mesh.dp_size
         ce = nll.sum() / denom
         metrics = {"ce": ce, "aux": aux, "ppl": torch.exp(ce),
                    "tokens": denom, **health}

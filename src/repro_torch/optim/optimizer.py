@@ -8,7 +8,11 @@ tensor (``dict(model.named_parameters())``), and the state holds fp32
 first and second moments whatever the parameters' dtype.
 
 Unlike the JAX package's pure functions, ``apply_updates`` adds in place
-(under ``torch.no_grad``), so the model keeps one copy of its weights.
+(under ``torch.no_grad``), so the model keeps one copy of its weights.  On
+a mesh the dicts hold each rank's shards, and ``grad_norm`` (default
+``global_norm``) must be the norm of the full tensors
+(``dist.parallel.TrainShards.global_norm``): the clip then scales every
+shard alike.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
 
 
-def clip_by_global_norm(tree: dict, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: dict, max_norm: float, norm_fn=global_norm):
+    norm = norm_fn(tree)
     scale = torch.clamp(max_norm / norm.clamp_min(1e-9), max=1.0)
     return {k: (x.float() * scale).to(x.dtype) for k, x in tree.items()}, norm
 
@@ -39,7 +43,8 @@ def _step_f32(step) -> torch.Tensor:
 
 def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.0,
-          clip_norm: Optional[float] = None) -> Optimizer:
+          clip_norm: Optional[float] = None,
+          grad_norm: Callable = global_norm) -> Optimizer:
     """AdamW: bias-corrected moments, ``eps`` outside the sqrt, decoupled
     weight decay added to the update, learning rate ``lr(step + 1)``."""
     lr_fn = lr if callable(lr) else (lambda step: torch.tensor(
@@ -54,9 +59,9 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params, step):
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, grad_norm)
         else:
-            gnorm = global_norm(grads)
+            gnorm = grad_norm(grads)
         stepf = _step_f32(step)
         lr_t = lr_fn(stepf).to(torch.float32)
         bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), stepf)

@@ -24,6 +24,16 @@ makes the step raise.
 Mixed precision: ``mixed_precision(cfg)`` keeps fp32 parameters (the
 master weights) and sets bf16 compute; gradients and the AdamW moments stay
 fp32.  Remat lives on ``ModelConfig.remat`` (``with_remat``).
+
+On a mesh (``shards``: a ``dist.parallel.TrainShards`` of the sharded
+model) the step takes the same global batch and the at-rest shards as
+``params``: it keeps this rank's rows (``MeshContext.dp_rows``: its part
+of every microbatch), all-gathers the working weights, divides each
+microbatch's loss by that microbatch's mask count summed over the
+data-parallel ranks (one all-reduce for the whole step), sums the
+gradients over dp into this rank's shards, takes the AdamW step on the
+shards with the norm of the full gradients, and sums ``ce``, ``aux`` and
+``loss`` over dp: the metrics are one device's.
 """
 
 from __future__ import annotations
@@ -58,18 +68,31 @@ def microbatch_split(batch: dict, microbatches: int) -> list:
 
 
 def make_train_step(model, optimizer, *, microbatches: int = 1,
-                    health: bool = False):
+                    health: bool = False, shards=None):
     """Build the step (see the module docstring).  ``health=True`` runs the
     loss ``with_health``: the router-health stats ride the step's metrics,
-    with no second forward."""
+    with no second forward.  ``shards``: the train state on a mesh."""
 
     free = model.gradient_free()
+
+    def denominators(mbs):
+        """Each microbatch's mask count over the data-parallel ranks."""
+        counts = torch.stack([(mb["labels"] >= 0).float().sum()
+                              for mb in mbs])
+        return shards.ctx.all_reduce(counts, shards.ctx.dp_axes) \
+            .clamp_min(1.0)
 
     def grads_of(params, batch):
         keys = list(params)
         g_acc, l_acc, m_acc = None, 0.0, {}
-        for mb in microbatch_split(batch, microbatches):
-            loss, metrics = model.loss(mb, with_health=health)
+        mbs = microbatch_split(batch, microbatches)
+        denoms = None if shards is None else denominators(mbs)
+        for i, mb in enumerate(mbs):
+            if denoms is None:
+                loss, metrics = model.loss(mb, with_health=health)
+            else:
+                loss, metrics = model.loss(mb, with_health=health,
+                                           denom=denoms[i])
             grads = torch.autograd.grad(loss, [params[k] for k in keys],
                                         allow_unused=True)
             unreached = [k for k, g in zip(keys, grads)
@@ -102,4 +125,22 @@ def make_train_step(model, optimizer, *, microbatches: int = 1,
         return params, opt_state, step + 1, {**metrics, **opt_m,
                                              "loss": loss}
 
-    return train_step
+    def mesh_step(params, opt_state, step, batch):
+        ctx = shards.ctx
+        shards.gather_weights(params)
+        grads, loss, metrics = grads_of(
+            shards.working, ctx.dp_rows(batch, microbatches))
+        grads = shards.reduce_grads(grads)
+        # the ranks' shares of the loss sum to one device's
+        summed = ctx.all_reduce(torch.stack(
+            [loss, metrics["ce"], metrics["aux"]]), ctx.dp_axes)
+        loss = summed[0]
+        metrics = {**metrics, "ce": summed[1], "aux": summed[2],
+                   "ppl": torch.exp(summed[1])}
+        updates, opt_state, opt_m = optimizer.update(grads, opt_state,
+                                                     params, step)
+        apply_updates(params, updates)
+        return params, opt_state, step + 1, {**metrics, **opt_m,
+                                             "loss": loss}
+
+    return train_step if shards is None else mesh_step

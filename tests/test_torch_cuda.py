@@ -1138,3 +1138,32 @@ def test_window_model_serving_card_matches_cpu(dev):
             assert F.LAUNCHES.count - before == want
             tc, _ = cpu.generate(prompts, 8)
             assert torch.equal(tg.cpu(), tc), (block, paged)
+
+
+def test_mesh_trainer_world1_nccl_step_matches_plain(dev, tmp_path):
+    """The Trainer on a one-rank mesh (NCCL, world 1, mesh (1, 1) under
+    ``fsdp_tp``) against the plain Trainer: the same loss and grad norm
+    within 1e-6 relative, the same parameters within 1e-6."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train.loop import TrainConfig, Trainer
+    kw = dict(preset="smoke", arch_kwargs={"variant": "mosa"}, seq_len=128,
+              global_batch=4, microbatch=2, mosa_impl="kernel", steps=2,
+              log_every=1)
+    plain = Trainer(TrainConfig(**kw))
+    p0, _, h0 = plain.run(install_signals=False)
+    mesh_lib.init_process_group("cuda", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0)
+    try:
+        tr = Trainer(TrainConfig(mesh_shape=(1, 1), rule_set="fsdp_tp", **kw))
+        assert dist.get_backend() == "nccl" and tr.ctx.world == 1
+        p1, _, h1 = tr.run(install_signals=False)
+        full, _ = tr.full_state(p1)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(h1, h0):
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-6 * abs(b[k]), (k, a[k], b[k])
+    assert full.keys() == p0.keys()
+    for k, p in p0.items():
+        torch.testing.assert_close(full[k], p.detach(), atol=1e-6, rtol=0)
