@@ -208,13 +208,36 @@ Phases (any failure raises, so the script exits nonzero):
  32. ``compressed_all_reduce`` of phase 30's last gradients on its NCCL
      group (top-k 1 % and int8): kept + residual is the gradient bit for
      bit and the reduction is kept; the compression and the all-reduce
-     timed with CUDA events.
+     timed with CUDA events;
+ 33. phase 5's generate through a ``Server`` on a (1, 1) mesh over
+     ``data`` and ``model`` (phase 30's world-1 NCCL group) under ``tp``,
+     beside a plain ``Server`` in the same call, both under deterministic
+     algorithms: identical tokens and exactly phase 5's launches (6 of
+     #1, 762 of #11) for both; prefill ms, decode tok/s and one profiled
+     decode step of each;
+ 34. phase 11's Scheduler traffic on that mesh in timed mode (an
+     ``OpenLoopSource`` whose 32 arrivals are all due at the start, read
+     by rank 0), beside a plain run, both deterministic: identical tokens
+     and stats, exactly phase 11's launches (#11 and #12); the wall and
+     the pause share of each;
+ 35. tensor-parallel serving: layer 0 of phase 5's model as ``model`` = 4
+     rank-local shards (1 dense + 69 MoSA heads, one KV head of paged
+     cache each) through ``local_prefill`` over 8 x 1024, a packed chunk
+     through ``local_prefill_packed`` and 8 ``local_decode_step``s: #1,
+     #12 and #11 exactly once per shard and stage, each shard's MoSA
+     caches the unsharded layer's head slices (identical picks; the
+     unsharded router's GEMM cut into the shards' head slices, so that
+     both round alike), the shards' outputs summed within 1e-5 relative
+     of the unsharded layer's; then the dense side's
+     ``seq_sharded`` decode over 4 position slices, each in a thread of
+     its own, merged within 1e-5 relative of the unsplit decode.
 
 Phases 3 and 4 hold and time #9 and #10 too.  The last twelve lines are
 the ``serve`` JSON, the ``train`` JSON, the ``sched`` JSON (phases 26 and
 27 under ``window``), the ``block`` JSON, the ``window`` JSON, the
 ``sweep`` JSON, the ``pool`` JSON (28, 28b), the ``remat`` JSON (29), the
-``dist`` JSON (30-32), the ``kernels`` JSON, the ``nvidia-smi`` name and
+``dist`` JSON (30-35), the ``kernels`` JSON (with each kernel's launches
+in 33-35, ``launches_mesh``), the ``nvidia-smi`` name and
 power limit, and the result JSON.
 """
 
@@ -1503,11 +1526,13 @@ def slice_config(**mosa):
 BLOCK_MOSA = dict(selection_granularity="block", sel_block_size=16)
 
 
-def serve_slice(torch, cfg=None):
+def serve_slice(torch, cfg=None, **server_kw):
     """Paged serving at full width through ``Server.generate``: batch 8,
     prompt 1024, 128 greedy tokens.  Expected launches over the counted
     generate: one MoSA prefill kernel per layer (#1, or #5 with block
-    choice) and the paged decode kernel per layer and decode step."""
+    choice) and the paged decode kernel per layer and decode step.
+    ``server_kw``: more ``Server`` arguments (a mesh).  Returns the
+    server, the config, the prompts, the results and the tokens."""
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
 
@@ -1520,7 +1545,7 @@ def serve_slice(torch, cfg=None):
         f"{cfg.mosa.selection_granularity} choice"
         + (f" (blocks of {cfg.mosa.sel_block_size})" if block else ""))
     server = Server(cfg, batch=B, max_len=max_len,
-                    paged=PagedConfig(block_size=16), seed=0)
+                    paged=PagedConfig(block_size=16), seed=0, **server_kw)
     n_params = sum(p.numel() for p in server.model.parameters())
     prompts = torch.randint(2, cfg.vocab, (B, P),
                             generator=torch.Generator().manual_seed(1))
@@ -1584,7 +1609,7 @@ def serve_slice(torch, cfg=None):
         f"{span['decode_s']:.3f} s = {res['decode_tok_s']:.1f} tok/s")
     log(f"  peak device memory {res['peak_gib']:.3f} GiB; launches over the "
         f"generate call: {launches}")
-    return server, cfg, prompts, res
+    return server, cfg, prompts, res, toks
 
 
 def profile_decode(torch, server, prompts, steps=3):
@@ -3485,6 +3510,380 @@ def compress_slice(torch, grads):
     return out
 
 
+# ------------------------------------------------------ serving on a mesh
+def world1_mesh(torch):
+    """A (1, 1) mesh over ``data`` and ``model`` on the running world-1
+    NCCL process group ([30]'s)."""
+    from repro_torch.launch import mesh as mesh_lib
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"process group on "
+                             f"{torch.distributed.get_backend()}")
+    return mesh_lib.make_mesh((1, 1), ("data", "model"))
+
+
+def mesh_serve_slice(torch, five):
+    """[33]: [5]'s generate (paged, 8 x 1024 prompts, 128 greedy tokens) on
+    a world-1 NCCL mesh (1, 1) under ``tp`` beside a plain ``Server`` in
+    the same call, both under deterministic algorithms (``index_add_``'s
+    atomics make two generates differ).  Gates: identical tokens; exactly
+    [5]'s launches (6 of #1, 762 of #11, 0 of every other kernel, as
+    ``serve_slice`` checks) for both.  Reports prefill ms and decode tok/s
+    of both and one profiled decode step of each."""
+    mesh = world1_mesh(torch)
+    out, toks = {}, {}
+    with deterministic_algorithms(torch):
+        for name, kw in (("plain", {}),
+                         ("mesh", dict(mesh=mesh, rule_set="tp"))):
+            log(f"  {name} Server (deterministic):")
+            server, _, prompts, res, toks[name] = serve_slice(torch, **kw)
+            if name == "mesh" and (server.ctx is None
+                                   or server.ctx.world != 1):
+                raise AssertionError("the mesh Server has no mesh")
+            if res["launches"] != five["launches"]:
+                raise AssertionError(f"{name}: launches {res['launches']} "
+                                     f"!= [5]'s {five['launches']}")
+            log(f"  one decode step of the {name} Server, profiled:")
+            res["decode_step"] = profile_decode(torch, server, prompts)
+            out[name] = {k: res[k] for k in (
+                "prefill_ms", "decode_tok_s", "decode_s", "generate_s",
+                "peak_gib", "launches", "decode_step")}
+            del server
+            torch.cuda.empty_cache()
+    same = torch.equal(toks["plain"], toks["mesh"])
+    log(f"  tokens of the mesh Server == the plain Server's: {same}; "
+        f"prefill {out['mesh']['prefill_ms']:.2f} ms (plain "
+        f"{out['plain']['prefill_ms']:.2f}), decode "
+        f"{out['mesh']['decode_tok_s']:.1f} tok/s (plain "
+        f"{out['plain']['decode_tok_s']:.1f})")
+    if not same:
+        raise AssertionError("mesh Server tokens differ from the plain "
+                             "Server's")
+    out["tokens_equal"] = same
+    return out
+
+
+def mesh_sched_slice(torch, eleven):
+    """[34]: [11]'s Scheduler traffic (32 requests, prefix cache, batch 8,
+    576 blocks, 256-token chunks) in timed mode — an ``OpenLoopSource``
+    whose 32 arrivals are all due at the start, which rank 0 reads (on a
+    world of one no broadcast is needed), so the schedule is [11]'s — on a
+    world-1 NCCL mesh under ``tp`` beside a plain ``Server``'s run, both
+    under deterministic algorithms.  Gates: identical tokens and stats;
+    every request its ``max_new``; exactly [11]'s launches (#11 and #12,
+    0 of every other kernel) for both.  Reports the wall and the pause
+    share of both."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.loadgen import Arrival, OpenLoopSource
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = slice_config()
+    mesh = world1_mesh(torch)
+    reqs = sched_requests(cfg.vocab)
+    kw = dict(chunk=8, chunk_tokens=256, max_prefill_segs=4)
+    runs = {}
+    with deterministic_algorithms(torch):
+        for name, skw in (("plain", {}),
+                          ("mesh", dict(mesh=mesh, rule_set="tp"))):
+            server = Server(cfg, batch=8, max_len=SCHED_MAX_LEN,
+                            paged=PagedConfig(block_size=SCHED_BS,
+                                              num_blocks=SCHED_BLOCKS),
+                            seed=0, **skw)
+            obs.set_enabled(True)
+            obs.registry().reset()
+            obs.tracer().reset()
+            sched = Scheduler(server, prefix_cache=True, **kw)
+            src = OpenLoopSource([Arrival(0.0, "", p, m) for p, m in reqs])
+            counters = kernel_counters()
+            for c in counters.values():
+                c.count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sched.run(max_steps=100_000, source=src)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.count for k, c in counters.items()}
+            pause_s = obs.registry().histogram("serve.pause_s").sum
+            toks = [out[rid] for rid in src.submitted_rids]
+            for t, (_, m) in zip(toks, reqs):
+                if len(t) != m:
+                    raise AssertionError(f"{name}: {len(t)} tokens, want "
+                                         f"{m}")
+            if launches != eleven["launches"]:
+                raise AssertionError(f"{name}: launches {launches} != "
+                                     f"[11]'s {eleven['launches']}")
+            runs[name] = dict(wall_s=wall, pause_s=pause_s,
+                              pause_share=pause_s / wall,
+                              stats=dict(sched.stats), launches=launches,
+                              toks=toks)
+            log(f"  {name}: {len(reqs)} requests in {wall:.2f} s, pauses "
+                f"{pause_s:.2f} s ({pause_s / wall:.3f} of the wall); "
+                f"stats {sched.stats}")
+            del server, sched
+            torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(runs["plain"].pop("toks"),
+                                                  runs["mesh"].pop("toks")))
+    stats_same = runs["plain"]["stats"] == runs["mesh"]["stats"]
+    log(f"  mesh vs plain: identical tokens {same}, identical stats "
+        f"{stats_same}; launches {runs['mesh']['launches']}")
+    if not (same and stats_same):
+        raise AssertionError(f"mesh Scheduler: tokens equal {same}, stats "
+                             f"equal {stats_same}")
+    runs["tokens_equal"], runs["stats_equal"] = same, stats_same
+    return runs
+
+
+class ThreadAllReduce:
+    """``tp_all_reduce`` for ``n`` rank-local shards run in ``n`` threads of
+    one process: each thread's tensor is put in its rank's slot, and after
+    a barrier every thread takes the max or the sum of the slots in rank
+    order (on the card's one stream, in launch order)."""
+
+    def __init__(self, torch, n):
+        import threading
+        self.torch, self.slots = torch, [None] * n
+        self.barrier = threading.Barrier(n, timeout=120)
+
+    def __call__(self, t, tp, op="sum"):
+        self.slots[tp.rank] = t
+        self.barrier.wait()
+        vals = self.torch.stack(self.slots)
+        red = vals.amax(0) if op == "max" else vals.sum(0)
+        self.barrier.wait()
+        return t.copy_(red)
+
+
+def rel_to(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def tp_serve_shards_slice(torch, m=4, dims=(8, 1024, 1152, 64, 8)):
+    """[35]: layer 0 of [5]'s model served as ``model`` = 4 rank-local
+    shards (1 dense + 69 MoSA heads each: the raw ``tp`` placements of a
+    (1, 4) mesh, as [31]), each through ``local_prefill`` over 8 x 1024
+    (``dims``: batch, prompt, max_len, chunk segment, decode steps), a
+    packed chunk through ``local_prefill_packed`` (4 segments of 64
+    tokens continuing rows 0-3) and 8 ``local_decode_step``s, on its own
+    paged caches (identity tables, 1 KV head), beside the unsharded layer
+    on the same inputs, under deterministic algorithms.  Gates: per shard
+    exactly one #1 launch in the prefill, one #12 in the chunk and one #11
+    per decode step; the shards' MoSA caches (idx, scores, k, v) the
+    unsharded cache's head slices (idx identical; the values within 1e-6
+    relative, and whether bitwise); the shards' outputs summed within
+    1e-5 relative of the unsharded layer's at every stage.  The unsharded
+    layer's router GEMM is cut into the shards' 4 head slices (see below;
+    the rounding between the two is reported).  Then the dense side's
+    ``seq_sharded`` decode: a
+    contiguous cache of 1152 positions split into 4 slices of 288, each
+    served by its own rank-local copy in a thread of its own (the
+    all-reduces across the threads, ``ThreadAllReduce``), 4 steps: every
+    copy's output within 1e-5 relative of the unsplit decode."""
+    import copy
+    import threading
+    from repro_torch.core import attention as attn
+    from repro_torch.core.kv_cache import DenseKVCache
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.parallel import TensorParallel, shard_model
+    from repro_torch.nn.transformer import TransformerLM, packed_meta
+    from repro_torch.serve.paged_kv import PagedConfig
+    cfg = slice_config()
+    dev = torch.device("cuda")
+    B, P, L, SEG, STEPS = dims
+    with torch.no_grad():
+        model = TransformerLM(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(2, cfg.vocab, (B, P + SEG + STEPS),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    layer = model.layers[0].mixer
+    with torch.inference_mode():
+        x = model.layers[0].norm1(model.embed(tokens))
+    x_pre, x_dec = x[:, :P], x[:, P + SEG:]
+    x_chunk = x[:4, P:P + SEG].reshape(1, 4 * SEG, -1)
+    meta = packed_meta([0, SEG, 2 * SEG, 3 * SEG, 4 * SEG], [0, 1, 2, 3],
+                       [P] * 4, 4 * SEG, dev)
+    paged = PagedConfig(16)
+    counters = kernel_counters()
+
+    def serve(mod, local):
+        """(prefill, chunk, decode outputs, MoSA caches after each stage,
+        launches of each stage) of ``mod`` on fresh caches."""
+        pre, pk, dec = ((mod.local_prefill, mod.local_prefill_packed,
+                         mod.local_decode_step) if local else
+                        (mod.prefill, mod.prefill_packed, mod.decode_step))
+        caches = mod.init_cache(B, L, torch.float32, paged=paged,
+                                device=dev)
+        outs, snaps, launches = [], [], []
+        stages = [lambda c: pre(x_pre, c), lambda c: pk(x_chunk, c, meta)]
+        stages += [lambda c, i=i: dec(x_dec[:, i:i + 1], c)
+                   for i in range(STEPS)]
+        with torch.inference_mode():
+            for k, stage in enumerate(stages):
+                for c in counters.values():
+                    c.count = 0
+                y, caches = stage(caches)
+                torch.cuda.synchronize()
+                launches.append({n: c.count for n, c in counters.items()
+                                 if c.count})
+                outs.append(y)
+                if k in (0, 1, STEPS + 1):
+                    snaps.append(tuple(t.clone() for t in caches["sparse"]))
+        return outs, snaps, launches, caches
+
+    # The unsharded layer's router scores come from one GEMM over its 276
+    # heads, a shard's from one over its 69: cuBLAS rounds the two shapes
+    # otherwise (~1e-7), which flips a pick at a near-tie and, at a top-k
+    # or one-shot-width boundary, that pick's output.  The reference
+    # therefore cuts its router GEMM as the shards do (the same products,
+    # concatenated); the size of the rounding is reported.
+    router, hs = layer.sparse.router, cfg.mosa.n_mosa_heads // m
+
+    def sliced_scores(xx):
+        return torch.cat([torch.sigmoid(torch.einsum(
+            "bth,nh->bnt", xx.float(), router.w[r * hs:(r + 1) * hs]))
+            for r in range(m)], 1)
+
+    res = {"shards": []}
+    with deterministic_algorithms(torch), torch.inference_mode():
+        res["router_rounding"] = (router.scores(x_pre)
+                                  - sliced_scores(x_pre)).abs().max().item()
+    log(f"  router scores, one GEMM vs {m} head slices: max difference "
+        f"{res['router_rounding']:.2e}")
+    router.scores = sliced_scores
+    with deterministic_algorithms(torch):
+        try:
+            ref, ref_snaps, ref_launches, _ = serve(layer, False)
+        finally:
+            del router.scores
+        mesh = {"data": 1, "model": m}
+        specs = shd.resolve_specs(shd.param_shapes(layer), layer.specs(),
+                                  shd.mesh_rules(mesh, "tp"), mesh)
+        total = [torch.zeros_like(y) for y in ref]
+        want = ([{"mosa_attention": 1}, {"paged_prefill_attention": 1}]
+                + [{"paged_attention_decode": 1}] * STEPS)
+        shard_launches = {}
+        ties = []
+        for r in range(m):
+            shard = shard_model(copy.deepcopy(layer),
+                                TensorParallel(None, r, m), specs,
+                                {"data": 0, "model": r}, mesh)
+            outs, snaps, launches, caches = serve(shard, True)
+            if launches != want:
+                raise AssertionError(f"shard {r}: launches {launches} != "
+                                     f"{want}")
+            for lc in launches:
+                for n, c in lc.items():
+                    shard_launches[n] = shard_launches.get(n, 0) + c
+            kv_heads = caches["dense"].k.shape[-2]
+            h = shard.sparse.wq.shape[0]
+            if kv_heads * m != 4 or h * m != cfg.mosa.n_mosa_heads:
+                raise AssertionError(f"shard {r}: {kv_heads} KV heads, {h} "
+                                     "MoSA heads")
+            for t, y in zip(total, outs):
+                t += y
+            worst, bitwise = 0.0, True
+            for stage, (got, full) in enumerate(zip(snaps, ref_snaps)):
+                gi, gs, gk, gv = got[3], got[2], got[0], got[1]
+                sl = slice(r * h, (r + 1) * h)
+                wi, ws, wk, wv = (full[3][:, sl], full[2][:, sl],
+                                  full[0][:, sl], full[1][:, sl])
+                diff = (gi != wi).any(-1)
+                for b, hh in diff.nonzero().tolist():
+                    a = set(gi[b, hh].tolist()) ^ set(wi[b, hh].tolist())
+                    ties.append(dict(shard=r, stage=stage, row=b,
+                                     head=r * h + hh, positions=sorted(a)))
+                ok = ~diff
+                for g, w in ((gs, ws), (gk, wk), (gv, wv)):
+                    fin = torch.isfinite(w) & ok.reshape(
+                        ok.shape + (1,) * (w.dim() - ok.dim()))
+                    gg = torch.where(fin, g, 0.0)
+                    ww = torch.where(fin, w, 0.0)
+                    bitwise &= bool(torch.equal(gg, ww))
+                    worst = max(worst, rel_to(gg, ww))
+            res["shards"].append(dict(mosa_heads=h, kv_heads=kv_heads,
+                                      dense_cols=shard.dense.q_cols,
+                                      cache_rel=worst, cache_bitwise=bitwise,
+                                      launches=launches))
+            log(f"  shard {r}: {h} MoSA heads, {kv_heads} KV head (columns "
+                f"{shard.dense.q_cols}); launches per stage as wanted; its "
+                f"MoSA caches vs the unsharded slices: worst {worst:.2e} "
+                f"relative, bitwise {bitwise}")
+            if not worst <= 1e-6:
+                raise AssertionError(f"shard {r}: MoSA cache off by "
+                                     f"{worst:.2e}")
+            del shard, caches
+        if ties:
+            log(f"  selection differences: {ties}")
+            raise AssertionError(f"MoSA selections differ: {ties}")
+        rel = [rel_to(t, y) for t, y in zip(total, ref)]
+        log(f"  sum of the {m} shards vs the unsharded layer: prefill "
+            f"{rel[0]:.2e}, chunk {rel[1]:.2e}, decode steps worst "
+            f"{max(rel[2:]):.2e} relative")
+        if not max(rel) <= 1e-5:
+            raise AssertionError(f"shards' sums off by {rel}")
+        res.update(out_rel=rel, launches_unsharded=ref_launches,
+                   launches_total=shard_launches)
+
+        # the dense side's seq-sharded decode, 4 position slices
+        dense, n_seq = layer.dense, min(4, STEPS)
+        cache = DenseKVCache.create(B, L, 4, cfg.mosa.d_head, torch.float32,
+                                    dev)
+        with torch.inference_mode():
+            _, cache = dense.prefill(x_pre, cache)
+            unsplit = DenseKVCache(*(t.clone() for t in cache))
+            want_y = []
+            for i in range(n_seq):
+                y, unsplit = dense.decode_step(x_dec[:, i:i + 1], unsplit)
+                want_y.append(y)
+        n = L // m
+        mods, slices = [], []
+        for r in range(m):
+            mod = copy.deepcopy(dense)
+            mod.mesh_tp, mod.seq_sharded = TensorParallel(None, r, m), True
+            mods.append(mod)
+            slices.append(DenseKVCache(cache.k[:, r * n:(r + 1) * n].clone(),
+                                       cache.v[:, r * n:(r + 1) * n].clone(),
+                                       cache.length.clone()))
+        results, errors = [None] * m, []
+
+        def worker(r):
+            try:
+                with torch.inference_mode():
+                    c, ys = slices[r], []
+                    if mods[r]._serve_mode(c) != "seq":
+                        raise AssertionError("not a seq-sharded decode")
+                    for i in range(n_seq):
+                        y, c = mods[r].decode_step(x_dec[:, i:i + 1], c)
+                        ys.append(y)
+                    results[r] = ys
+            except BaseException as e:          # noqa: BLE001
+                errors.append((r, repr(e)))
+
+        reduce, attn.tp_all_reduce = attn.tp_all_reduce, ThreadAllReduce(
+            torch, m)
+        try:
+            threads = [threading.Thread(target=worker, args=(r,))
+                       for r in range(m)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            attn.tp_all_reduce = reduce
+        if errors:
+            raise AssertionError(f"seq-sharded decode: {errors}")
+        seq_rel = max(rel_to(y, w) for ys in results
+                      for y, w in zip(ys, want_y))
+        log(f"  seq_sharded dense decode, {m} slices of {n} positions, "
+            f"{n_seq} steps: worst {seq_rel:.2e} relative to the unsplit "
+            "decode")
+        if not seq_rel <= 1e-5:
+            raise AssertionError(f"seq-sharded decode off by {seq_rel:.2e}")
+        res["seq_rel"] = seq_rel
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -3530,7 +3929,7 @@ def main():
     times = time_kernels(torch, dev)
 
     log("[5] main path: paged MoSA serving at full width")
-    server, cfg, prompts, res = serve_slice(torch)
+    server, cfg, prompts, res, _ = serve_slice(torch)
 
     log("[6] card vs CPU at full width")
     cross_check(torch, server, cfg, prompts)
@@ -3570,7 +3969,7 @@ def main():
 
     block = {}
     log("[14] main path: block-choice paged serving at full width")
-    bserver, bcfg, bprompts, block["serve"] = serve_slice(
+    bserver, bcfg, bprompts, block["serve"], _ = serve_slice(
         torch, slice_config(**BLOCK_MOSA))
 
     log("[15] card vs CPU for block-choice serving at full width")
@@ -3647,6 +4046,13 @@ def main():
     log("[32] compressed all-reduce of [30]'s last gradients (NCCL)")
     dist_res["compress"] = compress_slice(torch, last_grads)
     del mesh_trainer, last_grads
+    torch.cuda.empty_cache()
+    log("[33] main path: [5]'s Server on a world-1 NCCL mesh under tp")
+    dist_res["mesh_serve"] = mesh_serve_slice(torch, res)
+    log("[34] main path: [11]'s Scheduler on that mesh, timed mode")
+    dist_res["mesh_sched"] = mesh_sched_slice(torch, sched)
+    log("[35] tensor-parallel serving: layer 0 as 4 rank-local shards")
+    dist_res["serve_shards"] = tp_serve_shards_slice(torch)
     torch.distributed.destroy_process_group()
 
     sweep["kernel_cases"] = {
@@ -3705,8 +4111,17 @@ def main():
                        or window["varlen_entry"]["launches"][name]
                        or sweep["launches_total"][name])
                 for name in sources}
+    # the mesh phases' launches: the mesh run of [33] and of [34], the 4
+    # shards of [35] together
+    launches_mesh = {name: {
+        "33": dist_res["mesh_serve"]["mesh"]["launches"][name],
+        "34": dist_res["mesh_sched"]["mesh"]["launches"][name],
+        "35": dist_res["serve_shards"]["launches_total"].get(name, 0)}
+        for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], max_abs_err=errs[name],
+                    launches=launches[name],
+                    launches_mesh=launches_mesh[name],
+                    max_abs_err=errs[name],
                     ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"],
                     bound_by=times[name]["bound_by"],

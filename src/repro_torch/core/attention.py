@@ -24,7 +24,13 @@ columns ``q_cols`` of the fused ``n_heads * d_head`` dim of ``wq`` and the
 same rows of ``wo``, and ``kv_cols`` of ``wk`` / ``wv`` (None: replicated);
 ``local_forward`` computes the heads those columns touch and returns this
 rank's share of the output (its rows of ``wo``), which ``forward`` sums
-over ``model``.
+over ``model``.  Serving follows the placement of the rank's cache
+(``_serve_mode``): the heads it holds (its own, or every head where the
+placement replicates them), or under ``seq_sharded`` every head at a
+slice of the positions, whose partial softmaxes (``softmax_partials``)
+merge with one MAX and one SUM all-reduce; ``local_prefill``,
+``local_decode_step`` and ``local_prefill_packed`` return the share
+before the sum.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from torch import nn
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.kv_cache import DenseKVCache, WindowKVCache, scatter_kept
-from repro_torch.dist.parallel import copy_to, gather_last, reduce_from
+from repro_torch.dist.parallel import (copy_to, gather_last, reduce_from,
+                                       tp_all_reduce)
 from repro_torch.dist.sharding import logical
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn.layers import param, trunc_normal_
@@ -175,6 +182,10 @@ class MultiHeadAttention(nn.Module):
             self.bk = param((c.n_kv_heads * c.d_head,), param_dtype, device)
             self.bv = param((c.n_kv_heads * c.d_head,), param_dtype, device)
         self.tp, self.q_cols, self.kv_cols = None, None, None
+        # serving on a mesh: the ``model`` group whatever the weights'
+        # placement, and whether the contiguous caches hold a slice of the
+        # positions of every head (``seq_sharded``)
+        self.mesh_tp, self.seq_sharded = None, False
 
     def specs(self):
         s = {"wq": logical("embed", "heads"),
@@ -326,32 +337,267 @@ class MultiHeadAttention(nn.Module):
         return out.to(cd) @ self.wo.to(cd)
 
     # ---- serving ----
+    # On a mesh (``mesh_tp``: the ``model`` group, set by ``shard_model``
+    # whatever the weights' placement) every serving entry point has a
+    # local form (``local_*``) that returns this rank's share of the
+    # output before the sum over ``model``, as ``local_forward``.  Which
+    # heads and positions a rank computes and keeps follows its cache's
+    # placement (``_serve_mode``).
+
+    def _own_kv_heads(self):
+        """(g0, g1): the kv heads of this rank's q heads when its weight
+        columns are exactly those whole heads (a head count that ``model``
+        divides); else None."""
+        if self.tp is None or self.kv_cols is None:
+            return None
+        c, d = self.cfg, self.cfg.d_head
+        (qa, qb), (ka, kb) = self.q_cols, self.kv_cols
+        R = c.n_heads // c.n_kv_heads
+        if (ka % d or kb % d or qa % d or qb % d
+                or qa // d != ka // d * R or qb // d != kb // d * R):
+            return None
+        return ka // d, kb // d
+
+    def cache_heads(self) -> int:
+        """The kv heads of this rank's cache under a head placement
+        (``cache_spec``'s rule): its share where ``model`` divides the kv
+        heads, else all of them."""
+        n, tp = self.cfg.n_kv_heads, self.mesh_tp
+        return n // tp.size if tp is not None and n % tp.size == 0 else n
+
+    def _serve_mode(self, cache) -> str:
+        """How this rank serves ``cache``:
+
+          * ``"plain"`` — off a mesh, or replicated weights and a cache of
+            every head and position: the whole output;
+          * ``"local"`` — the cache holds the kv heads of this rank's whole
+            weight columns (``_own_kv_heads``);
+          * ``"heads"`` — replicated weights, the cache holds this rank's
+            share of the kv heads: the columns of those heads;
+          * ``"full"`` — sharded weights, a cache of every head (a head
+            count that ``model`` does not divide): every rank computes
+            every head, its columns all-gathered;
+          * ``"seq"`` — a ``seq_sharded`` contiguous cache: every head at
+            this rank's slice of the positions.
+
+        Any other cache raises."""
+        tp = self.mesh_tp
+        if tp is None:
+            return "plain"
+        c = self.cfg
+        held = cache.k.shape[-2]
+        own = self._own_kv_heads()
+        if own is not None and held == own[1] - own[0]:
+            return "local"
+        if held != c.n_kv_heads:
+            if self.tp is None and held * tp.size == c.n_kv_heads:
+                return "heads"
+            raise ValueError(
+                f"a cache of {held} kv heads matches neither this rank's "
+                f"heads (q columns {self.q_cols}, kv columns "
+                f"{self.kv_cols}) nor all {c.n_kv_heads}")
+        if self.seq_sharded and isinstance(cache, (DenseKVCache,
+                                                   WindowKVCache)):
+            return "seq"
+        return "plain" if self.tp is None else "full"
+
+    def serves_share(self, cache) -> bool:
+        """Whether serving ``cache`` gives this rank's share of the output
+        (summed over ``model``) rather than the whole of it."""
+        mode = self._serve_mode(cache)
+        return mode in ("local", "heads", "full") or (
+            mode == "seq" and self.tp is not None)
+
+    def _heads_cols(self, cache):
+        """(q columns, kv columns) of the heads of a ``"heads"`` cache."""
+        d, R = self.cfg.d_head, self.cfg.n_heads // self.cfg.n_kv_heads
+        g = cache.k.shape[-2] * d
+        r = self.mesh_tp.rank
+        return (r * g * R, (r + 1) * g * R), (r * g, (r + 1) * g)
+
+    def _serve_qkv(self, x, mode, cache):
+        """q (B, Hq, T, d), k and v (B, Hkv, T, d) of the heads that
+        ``mode`` computes: this rank's (``"local"``, ``"heads"``) or every
+        head (sharded weights' columns all-gathered over ``model``)."""
+        if mode == "plain" or (mode == "seq" and self.tp is None):
+            return self._qkv(x)
+        c, cd = self.cfg, self.compute_dtype
+        B, T, _ = x.shape
+        xc = x.to(cd)
+        bias = c.qkv_bias
+        if mode == "heads":
+            (qa, qb), (ka, kb) = self._heads_cols(cache)
+            q = self._tp_proj(xc, self.wq[:, qa:qb],
+                              self.bq[qa:qb] if bias else None, None)
+            k = self._tp_proj(xc, self.wk[:, ka:kb],
+                              self.bk[ka:kb] if bias else None, None)
+            v = self._tp_proj(xc, self.wv[:, ka:kb],
+                              self.bv[ka:kb] if bias else None, None)
+        else:
+            q = self._tp_proj(xc, self.wq, self.bq if bias else None,
+                              self.q_cols)
+            k = self._tp_proj(xc, self.wk, self.bk if bias else None,
+                              self.kv_cols)
+            v = self._tp_proj(xc, self.wv, self.bv if bias else None,
+                              self.kv_cols)
+            if mode != "local":
+                q = gather_last(q, self.tp)
+                if self.kv_cols is not None:
+                    k, v = gather_last(k, self.tp), gather_last(v, self.tp)
+        return tuple(t.to(cd).reshape(B, T, -1, c.d_head).transpose(1, 2)
+                     for t in (q, k, v))
+
+    def _serve_out(self, out, mode, cache):
+        """(B, H, T, d) heads -> (B, T, h) through ``wo``: the whole output,
+        or this rank's share (its columns of the heads' output through its
+        rows of ``wo``)."""
+        if mode in ("plain", "local") or (mode == "seq" and self.tp is None):
+            return self._out(out)
+        B, H, T, d = out.shape
+        cd = self.compute_dtype
+        out = out.transpose(1, 2).reshape(B, T, H * d)
+        if mode == "heads":
+            qa, qb = self._heads_cols(cache)[0]
+            return out.to(cd) @ self.wo[qa:qb].to(cd)
+        qa, qb = self.q_cols
+        return out[..., qa:qb].to(cd) @ self.wo.to(cd)
+
+    def _summed(self, cache, served):
+        """(y, new cache) -> y summed over ``model`` where it is this
+        rank's share of the output (``serves_share`` of ``cache``)."""
+        y, new = served
+        if self.mesh_tp is not None and self.serves_share(cache):
+            y = reduce_from(y, self.mesh_tp)
+        return y, new
+
     def prefill(self, x, cache, positions=None, valid=None):
         """``valid``: optional (B, T) bool — False marks right-pad tokens;
         it only sets how far the cache ``length`` advances."""
+        return self._summed(cache, self.local_prefill(x, cache, positions,
+                                                      valid))
+
+    def decode_step(self, x, cache, positions=None):
+        """x: (B, 1, h); attends over the cache + itself."""
+        return self._summed(cache, self.local_decode_step(x, cache,
+                                                          positions))
+
+    def prefill_packed(self, x, cache, meta):
+        """Packed multi-segment chunked prefill.  x: (1, C, h), N prompt
+        segments back to back, each continuing a different batch row of the
+        paged cache; ``meta`` is the layout ``TransformerLM.prefill_packed``
+        builds.  A paged window cache unpacks the segments
+        (``_prefill_packed_window``); a paged dense cache takes ONE pass
+        over the packed stream (``_prefill_packed_dense``)."""
+        return self._summed(cache, self.local_prefill_packed(x, cache,
+                                                             meta))
+
+    def local_prefill(self, x, cache, positions=None, valid=None):
+        """``prefill``'s share of this rank (off a mesh, ``prefill``)."""
+        mode = self._serve_mode(cache)
         if isinstance(cache, PagedWindowKVCache):
-            return self._prefill_window_paged(x, cache, positions, valid)
+            return self._prefill_window_paged(x, cache, positions, valid,
+                                              mode)
         if isinstance(cache, PagedDenseKVCache):
-            return self._prefill_dense_paged(x, cache, positions, valid)
+            return self._prefill_dense_paged(x, cache, positions, valid,
+                                             mode)
         if isinstance(cache, WindowKVCache):
-            return self._prefill_window(x, cache, positions, valid)
+            return self._prefill_window(x, cache, positions, valid, mode)
         if not isinstance(cache, DenseKVCache):
             raise NotImplementedError(f"{type(cache).__name__} is not ported")
         c = self.cfg
         B, T, _ = x.shape
         if positions is None:
             positions = torch.arange(T, device=x.device).expand(B, T)
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, positions)
         k = self._rope(k, positions)
         nv = None if valid is None else valid.sum(-1).to(torch.int32)
-        cache = cache.append(k.transpose(1, 2), v.transpose(1, 2), n_valid=nv)
+        if mode == "seq":
+            cache = self._seq_append(cache, k, v, nv)
+        else:
+            cache = cache.append(k.transpose(1, 2), v.transpose(1, 2),
+                                 n_valid=nv)
         out = chunked_attention(q, k, v, positions, positions, self._scale,
                                 window=c.window, chunk=CHUNK)
-        return self._out(out), cache
+        return self._serve_out(out, mode, cache), cache
+
+    def local_decode_step(self, x, cache, positions=None):
+        """``decode_step``'s share of this rank (off a mesh,
+        ``decode_step``).  A ``seq_sharded`` cache merges the ranks'
+        partial softmaxes with one MAX and one SUM all-reduce over
+        ``model``."""
+        mode = self._serve_mode(cache)
+        if isinstance(cache, PagedWindowKVCache):
+            return self._decode_window_paged(x, cache, positions, mode)
+        if isinstance(cache, PagedDenseKVCache):
+            return self._decode_dense_paged(x, cache, positions, mode)
+        if isinstance(cache, WindowKVCache):
+            return self._decode_window(x, cache, positions, mode)
+        if not isinstance(cache, DenseKVCache):
+            raise NotImplementedError(f"{type(cache).__name__} is not ported")
+        return self._decode_dense(x, cache, positions, mode)
+
+    def local_prefill_packed(self, x, cache, meta):
+        """``prefill_packed``'s share of this rank (off a mesh,
+        ``prefill_packed``)."""
+        mode = self._serve_mode(cache)
+        if isinstance(cache, PagedWindowKVCache):
+            return self._prefill_packed_window(x, cache, meta, mode)
+        if not isinstance(cache, PagedDenseKVCache):
+            raise ValueError(f"packed prefill requires a paged cache, got "
+                             f"{type(cache).__name__}")
+        return self._prefill_packed_dense(x, cache, meta, mode)
+
+    # -- seq-sharded contiguous caches: a rank holds positions (or ring
+    #    slots) [rank * n, (rank + 1) * n) of every head
+    def _seq_lo(self, cache) -> int:
+        return self.mesh_tp.rank * cache.k.shape[1]
+
+    def _seq_append(self, cache: DenseKVCache, k, v, n_valid=None):
+        """``DenseKVCache.append`` of k/v (B, Hkv, T, d) on a seq-sharded
+        cache: this rank writes the positions of its slice, and every
+        rank's ``length`` advances."""
+        B, _, T, _ = k.shape
+        n, lo = cache.k.shape[1], self._seq_lo(cache)
+        pos = cache.length.long()[:, None] + torch.arange(
+            T, device=k.device) - lo
+        rows = torch.arange(B, device=k.device)[:, None].expand(B, T)
+        keep = ((pos >= 0) & (pos < n)).reshape(-1)
+        rows, pos = rows.reshape(-1), pos.clamp(0, n - 1).reshape(-1)
+        for dst, t in ((cache.k, k), (cache.v, v)):
+            scatter_kept(dst, rows, pos,
+                         t.transpose(1, 2).reshape(B * T, *t.shape[1:2],
+                                                   t.shape[-1]), keep)
+        adv = T if n_valid is None else n_valid.to(torch.int32)
+        return DenseKVCache(cache.k, cache.v, cache.length + adv)
+
+    def _seq_ring_write(self, cache: WindowKVCache, k, v, pos, keep):
+        """Write tokens at their ring slots ``pos % W`` where this rank
+        holds the slot: k/v (M, Hkv, d), pos (M,), keep (M,); rows
+        ``row`` = the batch row of each token (M = B * T, row-major)."""
+        B, n = cache.positions.shape
+        W, lo = n * self.mesh_tp.size, self._seq_lo(cache)
+        T = pos.shape[0] // B
+        rows = torch.arange(B, device=pos.device)[:, None].expand(
+            B, T).reshape(-1)
+        slot = pos.long() % W - lo
+        keep = keep & (slot >= 0) & (slot < n)
+        slot = slot.clamp(0, n - 1)
+        scatter_kept(cache.k, rows, slot, k, keep)
+        scatter_kept(cache.v, rows, slot, v, keep)
+        scatter_kept(cache.positions, rows, slot, pos.to(torch.int32), keep)
+
+    def _seq_merge(self, s, ok, v):
+        """Attention over the keys of every rank's slice: this rank's
+        partial softmax (``softmax_partials``) merged with one MAX and one
+        SUM all-reduce over ``model``."""
+        m, l, acc = softmax_partials(s, ok, v)
+        m_all = tp_all_reduce(m.clone(), self.mesh_tp, "max")
+        return finish_partials(tp_all_reduce(
+            rescale_partials(m, l, acc, m_all), self.mesh_tp))
 
     def _prefill_dense_paged(self, x, cache: PagedDenseKVCache,
-                             positions=None, valid=None):
+                             positions=None, valid=None, mode="plain"):
         """New K/V scatter into the row's pool blocks, then attention runs
         over the row's whole gathered range with a validity mask (fresh
         prefill and prefix continuation alike)."""
@@ -360,7 +606,7 @@ class MultiHeadAttention(nn.Module):
         if positions is None:
             positions = cache.length.long()[:, None] + torch.arange(
                 T, device=x.device)[None]
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, positions)
         k = self._rope(k, positions)
         nv = None if valid is None else valid.sum(-1).to(torch.int32)
@@ -373,10 +619,10 @@ class MultiHeadAttention(nn.Module):
                                 positions, k_pos, self._scale,
                                 window=c.window, k_valid=k_valid,
                                 chunk=CHUNK)
-        return self._out(out), cache
+        return self._serve_out(out, mode, cache), cache
 
     def _prefill_window_paged(self, x, cache: PagedWindowKVCache,
-                              positions=None, valid=None):
+                              positions=None, valid=None, mode="plain"):
         """Paged window prefill, past-aware: the ring as it was before the
         append (gathered once) supplies the past keys — it holds the last W
         past tokens, every key a new query's window can reach."""
@@ -387,7 +633,7 @@ class MultiHeadAttention(nn.Module):
                 T, device=x.device)[None]
         pk, pv = cache.gather()                        # copies, pre-append
         ppos = cache.positions.clone()                 # the append writes it
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, positions)
         k = self._rope(k, positions)
         nv = None if valid is None else valid.sum(-1).to(torch.int32)
@@ -402,97 +648,101 @@ class MultiHeadAttention(nn.Module):
         out = chunked_attention(q, k_all, v_all, positions, kpos_all,
                                 self._scale, window=c.window, k_valid=k_valid,
                                 chunk=CHUNK)
-        return self._out(out), cache
+        return self._serve_out(out, mode, cache), cache
 
     def _prefill_window(self, x, cache: WindowKVCache, positions=None,
-                        valid=None):
+                        valid=None, mode="plain"):
         """Window prefill: the full forward (the flash kernel with
         ``impl="kernel"``), then the ring keeps the last W valid tokens'
         K/V at slot ``position % W`` — the slot ``append_one`` would have
         used, so the first decode step overwrites the oldest kept token.
         Right-pad tokens (``valid`` False) are dropped, and ``length``
         advances by the real token count.  The ring is rewritten in place
-        from empty, as the JAX package builds it anew."""
+        from empty, as the JAX package builds it anew; a seq-sharded ring
+        keeps the slots of this rank's slice."""
         B, T, _ = x.shape
         pos = (positions if positions is not None
                else torch.arange(T, device=x.device).expand(B, T))
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
-        y = self._out(self._attend(q, k, v, pos))
-        W = cache.k.shape[1]
+        y = self._serve_out(self._attend(q, k, v, pos), mode, cache)
+        W = cache.k.shape[1] * (self.mesh_tp.size if mode == "seq" else 1)
         nv = (torch.full((B,), T, dtype=torch.int32, device=x.device)
               if valid is None else valid.sum(-1).to(torch.int32))
         base_pos = torch.broadcast_to(pos, (B, T)).long()
         t = torch.arange(T, device=x.device)[None]
         keep = ((t < nv[:, None]) & (t >= nv[:, None] - W)).reshape(-1)
-        rows = torch.arange(B, device=x.device)[:, None].expand(B, T)
-        rows, slots = rows.reshape(-1), (base_pos % W).reshape(-1)
         cache.k.zero_()
         cache.v.zero_()
         cache.positions.fill_(-1)
-        scatter_kept(cache.k, rows, slots,
-                     k.transpose(1, 2).reshape(B * T, -1, k.shape[-1]), keep)
-        scatter_kept(cache.v, rows, slots,
-                     v.transpose(1, 2).reshape(B * T, -1, v.shape[-1]), keep)
-        scatter_kept(cache.positions, rows, slots, base_pos.reshape(-1), keep)
+        kt = k.transpose(1, 2).reshape(B * T, -1, k.shape[-1])
+        vt = v.transpose(1, 2).reshape(B * T, -1, v.shape[-1])
+        if mode == "seq":
+            self._seq_ring_write(cache, kt, vt, base_pos.reshape(-1), keep)
+        else:
+            rows = torch.arange(B, device=x.device)[:, None].expand(B, T)
+            rows, slots = rows.reshape(-1), (base_pos % W).reshape(-1)
+            scatter_kept(cache.k, rows, slots, kt, keep)
+            scatter_kept(cache.v, rows, slots, vt, keep)
+            scatter_kept(cache.positions, rows, slots, base_pos.reshape(-1),
+                         keep)
         return y, WindowKVCache(cache.k, cache.v, cache.positions,
                                 cache.length + nv)
 
-    def _window_attend(self, q, kk, vv, kpos, pos):
+    def _window_attend(self, q, kk, vv, kpos, pos, mode, cache):
         """Ring-decode attention shared by the contiguous and paged window
         caches: q (B, H, 1, d); kk/vv (B, W, Hkv, d) in the ring layout;
         kpos (B, W) positions (-1 = empty); pos (B, 1)."""
-        c = self.cfg
-        B = q.shape[0]
+        B, H, _, d = q.shape
         kk = kk.transpose(1, 2).to(q.dtype)                # (B, Hkv, W, d)
         vv = vv.transpose(1, 2).to(q.dtype)
-        Hkv, R = c.n_kv_heads, c.n_heads // c.n_kv_heads
-        qg = q.reshape(B, Hkv, R, 1, c.d_head).float()
+        Hkv = kk.shape[1]
+        qg = q.reshape(B, Hkv, H // Hkv, 1, d).float()
         s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kk.float()) * self._scale
         ok = ((kpos >= 0)[:, None, None, None, :]
               & (kpos[:, None, None, None, :] <= pos[:, None, None, :, None]))
-        s = torch.where(ok, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(vv.dtype), vv)
-        return self._out(out.reshape(B, c.n_heads, 1, c.d_head))
+        if mode == "seq":
+            out = self._seq_merge(s, ok, vv[:, :, None, None]).to(vv.dtype)
+        else:
+            s = torch.where(ok, s, NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(vv.dtype), vv)
+        return self._serve_out(out.reshape(B, H, 1, d), mode, cache)
 
-    def _decode_window(self, x, cache: WindowKVCache, positions=None):
+    def _decode_window(self, x, cache: WindowKVCache, positions=None,
+                       mode="plain"):
         pos = cache.length.long()[:, None] if positions is None else positions
-        q, k, v = self._qkv(x)                             # (B, H, 1, d)
+        q, k, v = self._serve_qkv(x, mode, cache)         # (B, H, 1, d)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
-        cache = cache.append_one(k[:, :, 0], v[:, :, 0])
+        if mode == "seq":
+            B = x.shape[0]
+            self._seq_ring_write(cache, k[:, :, 0], v[:, :, 0],
+                                 cache.length, torch.ones(
+                                     B, dtype=torch.bool, device=x.device))
+            cache = WindowKVCache(cache.k, cache.v, cache.positions,
+                                  cache.length + 1)
+        else:
+            cache = cache.append_one(k[:, :, 0], v[:, :, 0])
         return self._window_attend(q, cache.k, cache.v, cache.positions,
-                                   pos), cache
+                                   pos, mode, cache), cache
 
     def _decode_window_paged(self, x, cache: PagedWindowKVCache,
-                             positions=None):
+                             positions=None, mode="plain"):
         """The gather path (the paged decode kernel serves dense caches
         only, as in the JAX package)."""
         pos = cache.length.long()[:, None] if positions is None else positions
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
         cache = cache.append_one(k[:, :, 0], v[:, :, 0])
         kk, vv = cache.gather()            # ring layout == WindowKVCache.k
-        return self._window_attend(q, kk, vv, cache.positions, pos), cache
+        return self._window_attend(q, kk, vv, cache.positions, pos, mode,
+                                   cache), cache
 
-    def prefill_packed(self, x, cache, meta):
-        """Packed multi-segment chunked prefill.  x: (1, C, h), N prompt
-        segments back to back, each continuing a different batch row of the
-        paged cache; ``meta`` is the layout ``TransformerLM.prefill_packed``
-        builds.  A paged window cache unpacks the segments
-        (``_prefill_packed_window``); a paged dense cache takes ONE pass
-        over the packed stream (``_prefill_packed_dense``)."""
-        if isinstance(cache, PagedWindowKVCache):
-            return self._prefill_packed_window(x, cache, meta)
-        if not isinstance(cache, PagedDenseKVCache):
-            raise ValueError(f"packed prefill requires a paged cache, got "
-                             f"{type(cache).__name__}")
-        return self._prefill_packed_dense(x, cache, meta)
-
-    def _prefill_packed_window(self, x, cache: PagedWindowKVCache, meta):
+    def _prefill_packed_window(self, x, cache: PagedWindowKVCache, meta,
+                               mode="plain"):
         """Window side of packed prefill: unpack to a (N, C) right-padded
         batch over an N-row view of the paged cache (row fields gathered,
         pools shared) and reuse ``_prefill_window_paged``; the updated row
@@ -505,7 +755,8 @@ class MultiHeadAttention(nn.Module):
         gc = PagedWindowKVCache(cache.k, cache.v, cache.block_table[rowc],
                                 cache.positions[rowc], cache.length[rowc])
         xs = x[0][meta["tok_idx"]] * meta["in_seg"][..., None].to(x.dtype)
-        y_seg, gc2 = self._prefill_window_paged(xs, gc, None, meta["in_seg"])
+        y_seg, gc2 = self._prefill_window_paged(xs, gc, None, meta["in_seg"],
+                                                mode)
         # segment of each batch row (-1: none); slot B takes the inactive
         sel = torch.full((B + 1,), -1, dtype=torch.long, device=x.device)
         sel.index_copy_(0, torch.where(rows < 0, B, rows),
@@ -522,7 +773,8 @@ class MultiHeadAttention(nn.Module):
         y = torch.where((meta["row_of_tok"] >= 0)[:, None], y, 0.0)
         return y[None].to(y_seg.dtype), cache
 
-    def _prefill_packed_dense(self, x, cache: PagedDenseKVCache, meta):
+    def _prefill_packed_dense(self, x, cache: PagedDenseKVCache, meta,
+                              mode="plain"):
         """Dense side of packed prefill: ONE pass over the packed stream.
         K/V scatter straight into each token's row blocks
         (``append_packed``), then every token attends its row's keys up to
@@ -530,9 +782,8 @@ class MultiHeadAttention(nn.Module):
         kernel on the card)."""
         if self.cfg.window:
             raise ValueError("a paged dense cache implies window == 0")
-        _, C, _ = x.shape
         pos = meta["pos_of_tok"][None]                     # (1, C)
-        q, k, v = self._qkv(x)                             # (1, H, C, d)
+        q, k, v = self._serve_qkv(x, mode, cache)         # (1, H, C, d)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
         cache = cache.append_packed(k[0].transpose(0, 1), v[0].transpose(0, 1),
@@ -540,54 +791,83 @@ class MultiHeadAttention(nn.Module):
         out = paged_prefill_attention(
             q[0].transpose(0, 1).contiguous(), cache, meta["cu"],
             meta["rows"], meta["past_lens"], scale=self._scale)
-        cd = self.compute_dtype
-        return out.reshape(1, C, -1).to(cd) @ self.wo.to(cd), cache
+        return self._serve_out(out.transpose(0, 1)[None], mode,
+                               cache), cache
 
-    def _decode_dense_paged(self, x, cache: PagedDenseKVCache, positions=None):
+    def _decode_dense_paged(self, x, cache: PagedDenseKVCache, positions=None,
+                            mode="plain"):
         """Append into the row's pool blocks, then paged-attention decode
         (the CUDA kernel for CUDA tensors)."""
         pos = cache.length.long()[:, None] if positions is None else positions
-        q, k, v = self._qkv(x)                             # (B, H, 1, d)
+        q, k, v = self._serve_qkv(x, mode, cache)         # (B, H, 1, d)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
         cache = cache.append(k.transpose(1, 2), v.transpose(1, 2))
         out = paged_attention_decode(q[:, :, 0].contiguous(), cache,
                                      scale=self._scale)
-        return self._out(out[:, :, None]), cache
+        return self._serve_out(out[:, :, None], mode, cache), cache
 
-    def decode_step(self, x, cache, positions=None):
-        """x: (B, 1, h); attends over the cache + itself."""
-        if isinstance(cache, PagedWindowKVCache):
-            return self._decode_window_paged(x, cache, positions)
-        if isinstance(cache, PagedDenseKVCache):
-            return self._decode_dense_paged(x, cache, positions)
-        if isinstance(cache, WindowKVCache):
-            return self._decode_window(x, cache, positions)
-        if not isinstance(cache, DenseKVCache):
-            raise NotImplementedError(f"{type(cache).__name__} is not ported")
+    def _decode_dense(self, x, cache: DenseKVCache, positions=None,
+                      mode="plain"):
         c = self.cfg
         B = x.shape[0]
         pos = cache.length.long()[:, None] if positions is None else positions
-        q, k, v = self._qkv(x)
+        q, k, v = self._serve_qkv(x, mode, cache)
         q = self._rope(q, pos)
         k = self._rope(k, pos)
-        cache = cache.append(k.transpose(1, 2), v.transpose(1, 2))
-        S = cache.k.shape[1]
-        k_pos = torch.arange(S, device=x.device).expand(B, S)
+        if mode == "seq":
+            cache = self._seq_append(cache, k, v)
+            lo = self._seq_lo(cache)
+        else:
+            cache = cache.append(k.transpose(1, 2), v.transpose(1, 2))
+            lo = 0
+        S, Hkv = cache.k.shape[1], cache.k.shape[2]
+        H, d = q.shape[1], q.shape[-1]
+        k_pos = lo + torch.arange(S, device=x.device).expand(B, S)
         k_valid = k_pos < cache.length[:, None]
-        Hkv = c.n_kv_heads
-        R = c.n_heads // Hkv
-        qg = q.reshape(B, Hkv, R, 1, c.d_head).float()
+        qg = q.reshape(B, Hkv, H // Hkv, 1, d).float()
         s = torch.einsum("bgrqd,bsgd->bgrqs", qg, cache.k.float()) * self._scale
         ok = (pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]) \
             & k_valid[:, None, None, None, :]
         if c.window:
             ok &= (pos[:, None, None, :, None]
                    - k_pos[:, None, None, None, :]) < c.window
-        s = torch.where(ok, s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        out = torch.einsum("bgrqs,bsgd->bgrqd", p, cache.v.float())
-        out = out / p.sum(-1).clamp_min(1e-30)[..., None]
-        out = out.to(self.compute_dtype).reshape(B, c.n_heads, 1, c.d_head)
-        return self._out(out), cache
+        if mode == "seq":
+            vv = cache.v.transpose(1, 2)[:, :, None, None]
+            out = self._seq_merge(s, ok, vv)
+        else:
+            s = torch.where(ok, s, NEG_INF)
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            out = torch.einsum("bgrqs,bsgd->bgrqd", p, cache.v.float())
+            out = out / p.sum(-1).clamp_min(1e-30)[..., None]
+        out = out.to(self.compute_dtype).reshape(B, H, 1, d)
+        return self._serve_out(out, mode, cache), cache
+
+
+# ----------------------------------------------- partial softmax (seq shards)
+def softmax_partials(s, ok, v):
+    """One slice of the keys' share of a softmax attention: s (..., K)
+    fp32 scores, ok (..., K) the keys that count, v (..., K, d) (batch
+    dims broadcast).  Returns (m, l, acc) in fp32: the row max over the
+    counted keys (NEG_INF where none count), the sum of exp(s - m) over
+    them and the unnormalised output sum exp(s - m) v."""
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.matmul(p[..., None, :], v.float())[..., 0, :]
+    return m, p.sum(-1), acc
+
+
+def rescale_partials(m, l, acc, m_all):
+    """A slice's (l, acc) rescaled to the row max of every slice
+    ``m_all``, packed as (..., 1 + d): the terms that sum over the
+    slices."""
+    e = torch.exp(m - m_all)
+    return torch.cat([(l * e)[..., None], acc * e[..., None]], -1)
+
+
+def finish_partials(packed):
+    """The sum over the slices of ``rescale_partials`` -> the attention
+    output (..., d)."""
+    return packed[..., 1:] / packed[..., :1].clamp_min(1e-30)

@@ -25,7 +25,10 @@ heads' share), one all-reduce over ``model`` sums the shares, and a side
 whose heads are replicated (a head count that ``model`` does not divide)
 is computed on every rank and added once, after the sum.  The gated form
 sums each side's shares apart (one all-reduce of both) and gates the
-sums: the gates are replicated.
+sums: the gates are replicated.  Serving follows the same rule
+(``prefill``, ``prefill_packed``, ``decode_step``; their ``local_*``
+forms return a rank's share with no collective), on caches that hold a
+rank's heads (``init_cache``).
 """
 
 from __future__ import annotations
@@ -84,9 +87,11 @@ class HybridAttention(nn.Module):
             self.dense = None
         if self._gated():
             self.gate = param((d_model, 2), param_dtype, device)
-        # on a mesh: the ``model`` group, and whether the sparse side's
-        # heads are sharded (the dense side's placement is its own)
-        self.tp, self.sparse_sharded = None, False
+        # on a mesh: the ``model`` group where a side's weights are
+        # sharded (``tp``) and whatever they are (``mesh_tp``, serving),
+        # and whether the sparse side's heads are sharded (the dense side's
+        # placement is its own)
+        self.tp, self.mesh_tp, self.sparse_sharded = None, None, False
 
     def specs(self):
         s = {f"sparse.{k}": v for k, v in self.sparse.specs().items()}
@@ -210,40 +215,79 @@ class HybridAttention(nn.Module):
                    paged: PagedConfig | None = None, device=None):
         """``paged``: the dense side then uses a block-paged pool.  The MoSA
         cache stays unpaged: it is already O(k) per head (block choice:
-        ``ceil(k / bs)`` candidate blocks and the current one)."""
+        ``ceil(k / bs)`` candidate blocks and the current one).  On a mesh
+        the caches hold this rank's heads: its MoSA heads, and its dense
+        heads where its columns are whole heads (``cache_heads``)."""
         self._serving()
         c = self.cfg
+        H = self.sparse.wq.shape[0]
         k = min(self._sparse_k(max_len), max_len)
         if c.selection_granularity == "block":
             bs = c.sel_block_size
             caches = {"sparse": MoSABlockKVCache.create(
-                batch, c.n_mosa_heads, -(-k // bs), bs, c.d_head, dtype,
-                device)}
+                batch, H, -(-k // bs), bs, c.d_head, dtype, device)}
         else:
             caches = {"sparse": MoSAKVCache.create(
-                batch, c.n_mosa_heads, k, c.d_head, dtype, device)}
+                batch, H, k, c.d_head, dtype, device)}
         if c.n_dense_heads > 0:
+            Hd = self.dense.cache_heads()
             if c.local_window > 0 and paged is not None:
                 W = min(c.local_window, max_len)
                 caches["dense"] = PagedWindowKVCache.create(
-                    batch, W, c.n_dense_heads, c.d_head, dtype,
+                    batch, W, Hd, c.d_head, dtype,
                     block_size=paged.block_size,
                     num_blocks=paged.num_window_blocks,
                     identity_tables=paged.num_window_blocks == 0,
                     device=device)
             elif c.local_window > 0:
                 caches["dense"] = WindowKVCache.create(
-                    batch, c.local_window, c.n_dense_heads, c.d_head, dtype,
-                    device)
+                    batch, c.local_window, Hd, c.d_head, dtype, device)
             elif paged is not None:
                 caches["dense"] = PagedDenseKVCache.create(
-                    batch, max_len, c.n_dense_heads, c.d_head, dtype,
+                    batch, max_len, Hd, c.d_head, dtype,
                     block_size=paged.block_size, num_blocks=paged.num_blocks,
                     identity_tables=paged.num_blocks == 0, device=device)
             else:
                 caches["dense"] = DenseKVCache.create(
-                    batch, max_len, c.n_dense_heads, c.d_head, dtype, device)
+                    batch, max_len, Hd, c.d_head, dtype, device)
         return caches
+
+    def _served(self, x, caches, sparse, dense, local: bool = False):
+        """Both sides' serving results -> (output, caches).  ``sparse`` /
+        ``dense``: the sides' calls, each (y, cache).  On a mesh the sides
+        that give this rank's share (the MoSA heads when they are sharded;
+        the dense side by its cache, ``MultiHeadAttention.serves_share``)
+        are summed by one all-reduce over ``model`` and a replicated side
+        is added once after it (the gated form sums each side apart and
+        gates the sums), as ``_mesh_forward``.  ``local``: return this
+        rank's share, the sum of those sides' shares, with no
+        collective."""
+        tp = self.mesh_tp
+        dense_share = (tp is not None and self.dense is not None
+                       and self.dense.serves_share(caches["dense"]))
+        ys, sc = sparse()
+        out = dict(caches, sparse=sc)
+        yd = None
+        if self.dense is not None:
+            yd, out["dense"] = dense()
+        shares = [t for t, sharded in ((ys, self.sparse_sharded),
+                                       (yd, dense_share)) if sharded]
+        if tp is None or not shares:
+            return self._combine(x, ys, yd), out
+        share = shares[0] if len(shares) == 1 else shares[0] + shares[1]
+        if local:
+            return share, out
+        if self._gated():
+            summed = iter(reduce_from(torch.stack(shares), tp))
+            ys = next(summed) if self.sparse_sharded else ys
+            yd = next(summed) if dense_share else yd
+            return self._combine(x, ys, yd), out
+        y = reduce_from(share, tp)               # the sharded sides, summed
+        if not self.sparse_sharded:              # replicated: added once
+            return self._combine(x, ys, y), out
+        if yd is not None and not dense_share:
+            return self._combine(x, y, yd), out
+        return y, out
 
     def prefill(self, x, caches, positions=None, valid=None,
                 continued: bool = False):
@@ -251,41 +295,62 @@ class HybridAttention(nn.Module):
         (prefix-cache hit); the sparse side extends it through the exact
         union selection of ``MoSAAttention.prefill_past``, the dense side's
         paged prefill is past-aware through its cache ``length`` alone."""
-        self._serving()
-        if continued:
-            y, sc = self.sparse.prefill_past(x, caches["sparse"], valid)
-        else:
-            y, sc = self.sparse.prefill(x, caches["sparse"], positions,
-                                        valid)
-        out = dict(caches, sparse=sc)
-        yd = None
-        if self.dense is not None:
-            yd, out["dense"] = self.dense.prefill(x, caches["dense"],
-                                                 positions, valid)
-        return self._combine(x, y, yd), out
+        return self._prefill(x, caches, positions, valid, continued, False)
 
     def prefill_packed(self, x, caches, meta):
         """Packed chunked prefill: the sparse side runs per-segment union
         selection (``MoSAAttention.prefill_packed``), the dense side its
         paged packed path."""
-        self._serving()
-        y, sc = self.sparse.prefill_packed(x, caches["sparse"], meta)
-        out = dict(caches, sparse=sc)
-        yd = None
-        if self.dense is not None:
-            yd, out["dense"] = self.dense.prefill_packed(x, caches["dense"],
-                                                        meta)
-        return self._combine(x, y, yd), out
+        return self._prefill_packed(x, caches, meta, False)
 
     def decode_step(self, x, caches, positions=None):
+        return self._decode_step(x, caches, positions, False)
+
+    def local_prefill(self, x, caches, positions=None, valid=None,
+                      continued: bool = False):
+        """This rank's share of ``prefill`` on a mesh, before the sum over
+        ``model`` (the replicated sides are not in it; their caches are
+        updated all the same), and its caches: no collective where the
+        placements are head-parallel."""
+        return self._prefill(x, caches, positions, valid, continued, True)
+
+    def local_prefill_packed(self, x, caches, meta):
+        """This rank's share of ``prefill_packed`` (see ``local_prefill``)."""
+        return self._prefill_packed(x, caches, meta, True)
+
+    def local_decode_step(self, x, caches, positions=None):
+        """This rank's share of ``decode_step`` (see ``local_prefill``)."""
+        return self._decode_step(x, caches, positions, True)
+
+    def _prefill(self, x, caches, positions, valid, continued, local):
         self._serving()
-        y, sc = self.sparse.decode_step(x, caches["sparse"], positions)
-        out = dict(caches, sparse=sc)
-        yd = None
-        if self.dense is not None:
-            yd, out["dense"] = self.dense.decode_step(x, caches["dense"],
-                                                     positions)
-        return self._combine(x, y, yd), out
+        if continued:
+            def sparse():
+                return self.sparse.prefill_past(x, caches["sparse"], valid)
+        else:
+            def sparse():
+                return self.sparse.prefill(x, caches["sparse"], positions,
+                                           valid)
+        return self._served(
+            x, caches, sparse,
+            lambda: self.dense.local_prefill(x, caches["dense"], positions,
+                                             valid), local)
+
+    def _prefill_packed(self, x, caches, meta, local):
+        self._serving()
+        return self._served(
+            x, caches,
+            lambda: self.sparse.prefill_packed(x, caches["sparse"], meta),
+            lambda: self.dense.local_prefill_packed(x, caches["dense"], meta),
+            local)
+
+    def _decode_step(self, x, caches, positions, local):
+        self._serving()
+        return self._served(
+            x, caches,
+            lambda: self.sparse.decode_step(x, caches["sparse"], positions),
+            lambda: self.dense.local_decode_step(x, caches["dense"],
+                                                 positions), local)
 
     def kv_total(self, T: int) -> int:
         """Paper Table 2 metric: KV = T*H_dense + k*H_mosa (the window caps

@@ -34,8 +34,11 @@ package (no Pallas kernel there).
 
 On a mesh the module holds a slice of the heads (``router.w``, ``wq``,
 ``wk``, ``wv``, ``wo`` cut on their leading ``mosa_heads`` dim by
-``dist.parallel.shard_model``) and its forward, unchanged, returns the
-scatter-add of those heads alone: the caller sums the ranks' shares.
+``dist.parallel.shard_model``) and its forward and serving entry points,
+unchanged, return the scatter-add of those heads alone (their head count
+is the weights', their caches hold those heads: a shard of heads
+h0..h1 selects and caches exactly what the whole layer does for them); the
+caller sums the ranks' shares.
 """
 
 from __future__ import annotations
@@ -360,7 +363,7 @@ class MoSAAttention(nn.Module):
             return self._prefill_past_block(x, cache, valid)
         c, cd = self.cfg, self.compute_dtype
         B, T, h = x.shape
-        H, d = c.n_mosa_heads, c.d_head
+        H, d = self.wq.shape[0], c.d_head    # this rank's heads
         kc = cache.k.shape[2]
         dev = x.device
         L0 = cache.length.long()                                 # (B,)
@@ -484,7 +487,7 @@ class MoSAAttention(nn.Module):
             return self._decode_block(x, cache, positions)
         c, cd = self.cfg, self.compute_dtype
         B, _, h = x.shape
-        H, d = c.n_mosa_heads, c.d_head
+        H, d = self.wq.shape[0], c.d_head    # this rank's heads
         t = cache.length.long() if positions is None else positions[:, 0]
 
         x0 = x[:, 0].to(cd)                                       # (B, h)
@@ -540,7 +543,7 @@ class MoSAAttention(nn.Module):
         the same), roped at their original positions."""
         c, cd = self.cfg, self.compute_dtype
         B, T, h = x.shape
-        H = c.n_mosa_heads
+        H = self.wq.shape[0]                 # this rank's heads
         bs, CB = cache.block_size, cache.n_cand
         nbt = -(-T // bs)
         kcb = min(CB, nbt)
@@ -614,7 +617,7 @@ class MoSAAttention(nn.Module):
         the one-shot width ``kb_for(L0 + nv)``."""
         c, cd = self.cfg, self.compute_dtype
         B, T, h = x.shape
-        H, d = c.n_mosa_heads, c.d_head
+        H, d = self.wq.shape[0], c.d_head    # this rank's heads
         bs, CB = cache.block_size, cache.n_cand
         NSB = -(-T // bs) + 1        # blocks the suffix can straddle
         dev = x.device
@@ -773,7 +776,7 @@ class MoSAAttention(nn.Module):
              completion, the running mean otherwise."""
         c, cd = self.cfg, self.compute_dtype
         B = x.shape[0]
-        H, d = c.n_mosa_heads, c.d_head
+        H, d = self.wq.shape[0], c.d_head    # this rank's heads
         bs, CB = cache.block_size, cache.n_cand
         R = (CB + 1) * bs
         dev = x.device

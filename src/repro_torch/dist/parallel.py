@@ -24,11 +24,22 @@ each module what it holds:
     the output of its own heads, one all-reduce sums the layer, and a
     replicated side is added once, after it.
 
+Both attention modules also learn the ``model`` group whatever their
+weights' placement (``mesh_tp``): serving follows the caches' placements,
+so replicated dense weights still serve a head-sharded cache by its
+heads.
+
 The modules then compute on plain local tensors (the kernels never see a
 ``DTensor``) and meet their peers only through ``copy_to`` (identity
 forward, all-reduce backward), ``reduce_from`` (all-reduce forward,
 identity backward) and ``gather_last`` (all-gather forward, all-reduce and
 slice backward), Megatron's conjugate pair plus a gather.
+
+Serving (``local_caches``): each rank builds its caches at their local
+shapes from ``dist.sharding.cache_spec`` — its rows of the batch under
+dp, its heads under ``model``, its slice of the positions of a
+``seq_sharded`` contiguous cache — as fresh tensors (the kernels want
+contiguous pools), not views of a full cache.
 
 The train state (``TrainShards``): each parameter's at-rest shard is its
 TP-local tensor, further cut along the dimension that the rule set places
@@ -43,6 +54,7 @@ apart; ``global_norm`` is the norm of the full tensors, each counted once.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -104,6 +116,13 @@ class _GatherLast(torch.autograd.Function):
         w = ctx.w
         return g[..., ctx.rank * w:(ctx.rank + 1) * w].contiguous(), \
             None, None, None
+
+
+def tp_all_reduce(t, tp: TensorParallel, op: str = "sum"):
+    """In-place all-reduce of ``t`` over ``model`` (``op``: ``"sum"`` or
+    ``"max"``); returns ``t``."""
+    return _all_reduce(t, tp.group, {"sum": dist.ReduceOp.SUM,
+                                     "max": dist.ReduceOp.MAX}[op])
 
 
 def copy_to(x, tp: Optional[TensorParallel]):
@@ -278,7 +297,9 @@ def shard_model(model, tp: Optional[TensorParallel], specs: dict,
             mod.q_cols = _cols(specs[pre + "wq"], 1, full["wq"][1], tp)
             mod.kv_cols = _cols(specs[pre + "wk"], 1, full["wk"][1], tp)
             mod.tp = tp if mod.q_cols else None
+            mod.mesh_tp = tp
         elif isinstance(mod, HybridAttention):
+            mod.mesh_tp = tp
             mod.sparse_sharded = _head_sharded(mod.sparse, specs,
                                                f"{pre}sparse.")
             dense_sharded = mod.dense is not None and _cols(
@@ -410,3 +431,61 @@ class TrainShards:
         sl = shd.local_slices(s.full_shape, s.spec, self.ctx.sizes,
                               self.ctx.coords)
         return full[sl].contiguous()
+
+
+# ---------------------------------------------------------- serving caches
+# What an empty cache holds in each field (the caches' ``create``); the
+# block tables of the paged pools are built apart.
+_EMPTY = {"k": 0, "v": 0, "length": 0, "positions": -1, "scores": -math.inf,
+          "idx": -1, "pos": -1, "bscore": -math.inf, "bidx": -1, "bsum": 0}
+
+
+def local_caches(caches, mesh, rule_set: str = "tp",
+                 seq_sharded: bool = False, paged=None, device=None):
+    """This rank's empty serving caches: ``caches`` is the whole tree at
+    full shapes (built on ``meta``: a list per layer of caches and dicts
+    of caches), placed by ``cache_shardings``; every dim placed over mesh
+    axes keeps its share — the batch rows under dp, the heads under
+    ``model``, the positions of a ``seq_sharded`` contiguous cache.
+
+    A paged pool stays whole (its block dim is replicated), except with
+    identity tables (``paged.num_blocks == 0``, resp.
+    ``num_window_blocks``: ``Server.generate``'s auto-sized pools), where
+    a rank's pool holds its own rows' chains alone, numbered from 0.  (The
+    JAX package replicates that pool over dp too; the rows and their
+    results are the same.)"""
+    specs = shd.cache_shardings(caches, mesh, rule_set, seq_sharded)
+    sizes = shd.mesh_axes(mesh)
+
+    def shape_of(t, spec):
+        return tuple(n // shd._product(
+            shd.spec_axes(spec[d]) if d < len(spec) else (), sizes)
+            for d, n in enumerate(t.shape))
+
+    def one(c, sp):
+        if isinstance(c, dict):
+            return {k: one(c[k], sp[k]) for k in c}
+        if isinstance(c, list):
+            return [one(x, y) for x, y in zip(c, sp)]
+        f = {name: shape_of(t, s) for name, t, s in zip(c._fields, c, sp)}
+        table = f.pop("block_table", None)
+        ids = None
+        if table is not None:
+            window = "positions" in f
+            identity = paged is not None and (
+                paged.num_window_blocks if window else paged.num_blocks) == 0
+            if identity:
+                n = table[0] * table[1]
+                ids = torch.arange(n, dtype=torch.int32,
+                                   device=device).reshape(table)
+                f["k"] = f["v"] = (n,) + f["k"][1:]
+            else:
+                ids = torch.full(table, -1, dtype=torch.int32, device=device)
+        out = {name: torch.full(shape, _EMPTY[name],
+                                dtype=getattr(c, name).dtype, device=device)
+               for name, shape in f.items()}
+        if ids is not None:
+            out["block_table"] = ids
+        return type(c)(**out)
+
+    return one(caches, specs)

@@ -22,13 +22,24 @@ trimmed — ``tuple(jax.sharding.PartitionSpec(...))`` of the JAX package's
 result.  Everything here is pure: a "mesh" is anything with a ``shape``
 mapping of axis name -> size (the JAX package's convention), a
 ``torch.distributed.device_mesh.DeviceMesh`` (its ``mesh_dim_names``), or a
-plain dict.  The cache placements (``cache_spec``) are not ported yet.
+plain dict.
+
+Serving caches are placed by ``cache_spec`` / ``cache_shardings`` from the
+``CACHE_AXES`` table, which names the logical axis of every dim of every
+cache family (the paged pools register theirs from
+``repro_torch.serve.paged_kv``): ``batch`` over the data-parallel axes,
+``kv_heads`` / ``mosa_heads`` over ``model`` (head-parallel decode), and
+``seq`` over ``model`` only under ``seq_sharded`` (the batch-1
+long-context layout of the contiguous dense and window caches, where
+``seq`` wins over the heads).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping, Optional, Sequence
+
+from repro_torch.core import kv_cache as _kvc
 
 # Data-parallel mesh axes, outermost first; tensor-parallel axis name.
 DP_AXES = ("pod", "data")
@@ -266,3 +277,136 @@ def local_slices(shape: Sequence[int], spec: tuple, mesh,
         w = n // c
         out.append(slice(i * w, (i + 1) * w))
     return tuple(out)
+
+
+# --------------------------------------------------------- cache placements
+# The logical axis of every dim of every serving-cache field (JAX's
+# ``CACHE_AXES``): ``batch`` -> the rule set's data-parallel axes; ``seq``
+# -> ``model`` only under ``seq_sharded``; ``kv_heads`` / ``mosa_heads`` ->
+# what the rule set maps them to.  Unlike the parameters' fused dims, a
+# cache head dim holds the literal head count, so plain divisibility is
+# the guard.
+CACHE_AXES: dict = {
+    _kvc.DenseKVCache: {
+        "k": ("batch", "seq", "kv_heads", None),
+        "v": ("batch", "seq", "kv_heads", None),
+        "length": ("batch",),
+    },
+    _kvc.WindowKVCache: {
+        "k": ("batch", "seq", "kv_heads", None),
+        "v": ("batch", "seq", "kv_heads", None),
+        "positions": ("batch", "seq"),
+        "length": ("batch",),
+    },
+    _kvc.MoSAKVCache: {
+        "k": ("batch", "mosa_heads", None, None),
+        "v": ("batch", "mosa_heads", None, None),
+        "scores": ("batch", "mosa_heads", None),
+        "idx": ("batch", "mosa_heads", None),
+        "length": ("batch",),
+    },
+    _kvc.MoSABlockKVCache: {
+        "k": ("batch", "mosa_heads", None, None),
+        "v": ("batch", "mosa_heads", None, None),
+        "pos": ("batch", "mosa_heads", None),
+        "bscore": ("batch", "mosa_heads", None),
+        "bidx": ("batch", "mosa_heads", None),
+        "bsum": ("batch", "mosa_heads"),
+        "length": ("batch",),
+    },
+}
+
+
+def register_cache_axes(cache_type, table) -> None:
+    """Add a cache family's logical-axis table (``serve.paged_kv`` registers
+    the paged pools at import)."""
+    CACHE_AXES[cache_type] = dict(table)
+
+
+def _entry(axes):
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def cache_spec(cache, mesh, rule_set: str = "fsdp_tp",
+               seq_sharded: bool = False, stacked: bool = False):
+    """The placement of every field of one typed cache (a cache NamedTuple
+    of tensors, ``meta`` ones included), as a NamedTuple of the same type
+    holding placement tuples.  ``stacked``: every dim shifted right by a
+    leading, replicated layer axis (JAX's layer-stacked ``scan`` caches;
+    the port's caches are a list per layer).  Divisibility-safe: a dim
+    that the mapped axes do not divide is replicated; a mesh axis is used
+    at most once per tensor, so under ``seq_sharded`` ``seq`` wins over the
+    heads."""
+    rules = mesh_rules(mesh, rule_set)
+    dp = dp_axes(mesh, rule_set)
+    tp = tp_axis(mesh)
+    sizes = mesh_axes(mesh)
+    table = CACHE_AXES[type(cache)]
+
+    def one_field(leaf, names):
+        shape = tuple(getattr(leaf, "shape", ()))
+        off = 1 if stacked else 0
+        spec = [None] * len(shape)
+        used: set = set()
+        for i, name in enumerate(names):
+            d = off + i
+            if name is None or d >= len(shape):
+                continue
+            dim = shape[d]
+            if name == "batch":
+                axes = fit_axes(dim, tuple(a for a in dp if a not in used),
+                                mesh)
+            elif name == "seq":
+                axes = (tp,) if (seq_sharded and tp and tp not in used
+                                 and dim > 0 and dim % sizes[tp] == 0) else ()
+            else:
+                axes = rules.get(name) or ()
+                if isinstance(axes, str):
+                    axes = (axes,)
+                axes = tuple(a for a in axes if a not in used)
+                total = _product(axes, sizes)
+                if total == 0 or dim == 0 or dim % total:
+                    axes = ()
+            if axes:
+                spec[d] = _entry(axes)
+                used.update(axes)
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    return type(cache)(*(one_field(getattr(cache, f), table[f])
+                         for f in cache._fields))
+
+
+def cache_shardings(caches, mesh, rule_set: str = "fsdp_tp",
+                    seq_sharded: bool = False):
+    """Placements of a serving-cache tree (lists and dicts of caches, the
+    port's one entry per layer): a typed cache through ``cache_spec``; any
+    other tensor by JAX's positional fallback (dim 0 over the
+    data-parallel axes that divide it, and under ``seq_sharded`` dim 1
+    over ``model`` where it divides)."""
+    dp = dp_axes(mesh, rule_set)
+    tp = tp_axis(mesh)
+    sizes = mesh_axes(mesh)
+
+    def one(x):
+        if isinstance(x, (list, tuple)) and type(x) not in CACHE_AXES:
+            return type(x)(one(v) for v in x)
+        if isinstance(x, Mapping):
+            return {k: one(v) for k, v in x.items()}
+        if type(x) in CACHE_AXES:
+            return cache_spec(x, mesh, rule_set, seq_sharded)
+        shape = tuple(getattr(x, "shape", ()))
+        spec = [None] * len(shape)
+        if shape:
+            axes = fit_axes(shape[0], dp, mesh)
+            if axes:
+                spec[0] = _entry(axes)
+        if seq_sharded and tp is not None and len(shape) > 1 \
+                and shape[1] > 0 and shape[1] % sizes[tp] == 0:
+            spec[1] = tp
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    return one(caches)

@@ -1,9 +1,11 @@
 """Serving entry points (port of ``Server``, ``RequestPool`` and the CLI of
 ``repro.launch.serve``).
 
-``Server(cfg, ...)`` holds a ``TransformerLM`` on one device (the card by
-default) and serves whole batches: ``generate`` runs one prefill over the
-prompts and then ``gen_len - 1`` decode steps, greedy by default;
+``Server(cfg, ...)`` holds a ``TransformerLM`` on the card (by default)
+or on a device mesh (``mesh=``, or ``torch.distributed.run`` with more
+than one process; see ``Server.__init__``) and serves whole batches:
+``generate`` runs one prefill over the prompts and then ``gen_len - 1``
+decode steps, greedy by default;
 ``generate_stepwise`` does the same with one ``decode_step`` and one sample
 per token (the per-token baseline of the chunked decoder).  With
 ``paged=PagedConfig(...)`` the dense heads keep their KV in block-paged
@@ -21,6 +23,15 @@ slots of one contiguous batched cache, refilled between decode chunks by a
 batch-1 masked prefill (``prefill_one``) written into the freed row
 (``write_slot``).
 
+On a mesh every rank runs this same code on its shards: the weights cut
+by the rule set's placements (``dist.parallel.shard_model``), the caches
+by ``dist.sharding.cache_spec`` (``dist.parallel.local_caches``: the MoSA
+heads and the dense heads over ``model`` — head-parallel prefill and
+decode, one all-reduce a layer —, the rows over the data-parallel axes,
+and under ``seq_sharded`` the contiguous dense caches' positions over
+``model``).  Every rank gets the full logits and samples the same tokens;
+``generate`` all-gathers the rows of the data-parallel ranks.
+
 The caches are written IN PLACE and every cache op runs under
 ``torch.inference_mode()`` (a tensor made there refuses in-place writes
 outside it).  A row snapshot is a host copy, never a view of the device
@@ -31,6 +42,9 @@ CLI (the card unless ``--device cpu``):
       --variant mosa --batch 4 --prompt-len 32 --gen 16 [--stepwise]
   PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke \\
       --variant mosa --load-rate 4 --load-n 16
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \\
+      --preset smoke --variant mosa   # a mesh of 4 ranks; rank 0 prints
 """
 
 from __future__ import annotations
@@ -38,11 +52,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.nn.transformer import TransformerLM, sample_logits
@@ -212,19 +228,47 @@ def set_window_tables(caches, window_row, b: int):
     return _set_tables(PagedWindowKVCache, caches, window_row, b)
 
 
+def _world_size() -> int:
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 class Server:
     def __init__(self, model_cfg, max_len: int = 256, batch: int = 4,
                  params: Optional[dict] = None,
                  paged: Optional[PagedConfig] = None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None, rule_set: str = "tp",
+                 seq_sharded: bool = False):
         """``params``: a ``state_dict`` for ``TransformerLM`` (e.g. from
         ``repro_torch.convert.params_from_jax``); ``None`` draws random
-        weights from ``torch.Generator`` seeded with ``seed``."""
-        self.device = resolve_device(device)
+        weights from ``torch.Generator`` seeded with ``seed``.
+
+        ``mesh``: a ``DeviceMesh`` (``repro_torch.launch.mesh``) to serve
+        on, under ``rule_set`` (``"tp"`` or ``"fsdp_tp"``); with ``None``
+        and a world above 1 (``torch.distributed.run``) the mesh is
+        ``elastic_plan(world, tp=1)``'s, and in a world of 1 there is no
+        mesh.  ``seq_sharded``: the contiguous dense and window caches hold
+        a slice of the positions on each ``model`` rank (the batch-1
+        long-context layout) instead of a slice of the heads."""
         self.model_cfg = model_cfg
         self.max_len = max_len
         self.batch = batch
         self.paged = paged
+        self.rule_set, self.seq_sharded = rule_set, seq_sharded
+        self.mesh = self.ctx = None
+        if mesh is not None or _world_size() > 1:
+            from repro_torch.dist.fault_tolerance import elastic_plan
+            from repro_torch.dist.parallel import MeshContext
+            from repro_torch.launch import mesh as mesh_lib
+            self.device = mesh_lib.init_process_group(device)
+            if mesh is None:
+                plan = elastic_plan(dist.get_world_size(), tp=1)
+                mesh = mesh_lib.make_mesh(plan["shape"], plan["axes"],
+                                          self.device.type)
+            self.mesh, self.ctx = mesh, MeshContext(mesh, rule_set)
+        else:
+            self.device = resolve_device(device)
         with torch.no_grad():
             self.model = TransformerLM(model_cfg, device=self.device)
             if params is None:
@@ -233,13 +277,57 @@ class Server:
             else:
                 self.model.load_state_dict(params)
         self.model.eval()
+        # this rank's rows of a batch of ``batch`` (all of them off a
+        # mesh, and where the data-parallel axes do not divide it)
+        self.row_axes, self.rows = (), (0, batch)
+        if self.ctx is not None:
+            self._shard()
+
+    @torch.no_grad()
+    def _shard(self):
+        """Cut the model to this rank's ``model`` shards under the rule
+        set's placements (``param_specs``).  Under ``fsdp_tp`` the weights
+        rest sharded over dp, and serving keeps no optimizer state: they
+        are gathered once, here, into the working weights."""
+        from repro_torch.dist import sharding as shd
+        from repro_torch.dist.parallel import TrainShards, shard_model
+        ctx, model = self.ctx, self.model
+        specs = shd.param_specs(model, self.mesh, self.rule_set)
+        shapes = shd.param_shapes(model)
+        shard_model(model, ctx.tp, specs, ctx.coords, ctx.sizes)
+        model.mesh = ctx
+        shards = TrainShards(model, ctx, specs, shapes)
+        if any(s.dp_dim is not None for s in shards.shards.values()):
+            shards.gather_weights(shards.rest_params())
+        self.row_axes = shd.dp_axes(self.mesh, self.rule_set, self.batch)
+        i, n = shd.shard_index(self.row_axes, ctx.coords, ctx.sizes)
+        w = self.batch // n
+        self.rows = (i * w, (i + 1) * w)
+
+    def _local_rows(self, t):
+        """This rank's rows of a tensor of the whole batch."""
+        return t[self.rows[0]:self.rows[1]]
+
+    def _gather_rows(self, t):
+        """The whole batch of a tensor of this rank's rows (all-gathered
+        over the data-parallel axes that hold the rows)."""
+        if not self.row_axes:
+            return t
+        group = self.ctx.group(self.row_axes)
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts)
 
     @torch.inference_mode()
     def new_cache(self, batch: Optional[int] = None):
+        """Empty caches for ``batch`` rows (default the server's); on a mesh
+        this rank's (its rows, heads or positions)."""
         batch = self.batch if batch is None else batch
         paged = self.paged if batch == self.batch else None
         return self.model.init_cache(batch, self.max_len, paged=paged,
-                                     device=self.device)
+                                     device=self.device,
+                                     seq_sharded=self.seq_sharded)
 
     # ------------------------------------------------ the Scheduler's ops
     @torch.inference_mode()
@@ -257,7 +345,11 @@ class Server:
     def decode_many(self, tok, caches, generator=None, n: int = 1,
                     temperature: float = 0.0, top_k: int = 0):
         """``n`` decode steps of every row with sampling on the device;
-        tok (B, 1).  Returns (tokens (B, n), caches)."""
+        tok (B, 1).  Returns (tokens (B, n), caches).  With rows over the
+        data-parallel ranks a ``tok`` of the whole batch is cut to this
+        rank's rows, and the tokens are this rank's."""
+        if tok.shape[0] == self.batch:
+            tok = self._local_rows(tok)
         reg = obs.registry()
         if reg.enabled:       # dispatch counters only — no device sync
             reg.inc("server.decode_dispatches")
@@ -300,8 +392,12 @@ class Server:
     @torch.inference_mode()
     def write_slot(self, caches, row, b: int):
         """Write the batch-1 cache ``row`` into row ``b`` of ``caches``, in
-        place; returns ``caches``."""
-        return row_write(caches, row, b)
+        place (on a mesh, where this rank holds row ``b``); returns
+        ``caches``."""
+        r0, r1 = self.rows
+        if not r0 <= b < r1:
+            return caches
+        return row_write(caches, row, b - r0)
 
     @torch.inference_mode()
     def prefill_row(self, prompt, caches, b: int, valid=None, last_pos=None,
@@ -337,15 +433,18 @@ class Server:
                  top_k: int = 0):
         """prompts: (B, P) integer -> ((B, gen_len) int64, caches).  One
         prefill, then ``gen_len - 1`` decode steps; greedy when
-        ``temperature == 0``."""
+        ``temperature == 0``.  With rows over the data-parallel ranks each
+        rank runs its rows and the tokens of every row come back,
+        all-gathered (the caches are this rank's)."""
         self._check_generate(prompts, gen_len)
-        prompts = prompts.to(self.device)
+        prompts = self._local_rows(prompts.to(self.device))
         caches = self.new_cache()
         logits, caches = self.model.prefill(prompts, caches)
         tok0 = sample_logits(logits[:, -1], generator, temperature, top_k)
         toks, caches = self.decode_many(tok0[:, None], caches, generator,
                                         gen_len - 1, temperature, top_k)
-        return torch.cat([tok0[:, None], toks], dim=1), caches
+        return self._gather_rows(torch.cat([tok0[:, None], toks],
+                                           dim=1)), caches
 
     @torch.inference_mode()
     def generate_stepwise(self, prompts: torch.Tensor, gen_len: int,
@@ -357,7 +456,8 @@ class Server:
         chunked ``decode_many``); the same tokens as ``generate``."""
         self._check_generate(prompts, gen_len)
         caches = self.new_cache()
-        logits, caches = self.model.prefill(prompts.to(self.device), caches)
+        logits, caches = self.model.prefill(
+            self._local_rows(prompts.to(self.device)), caches)
         tok = sample_logits(logits[:, -1], generator, temperature,
                             top_k)[:, None]
         out = [tok]
@@ -366,7 +466,21 @@ class Server:
             tok = sample_logits(logits[:, -1], generator, temperature,
                                 top_k)[:, None]
             out.append(tok)
-        return torch.cat(out, dim=1), caches
+        return self._gather_rows(torch.cat(out, dim=1)), caches
+
+
+def check_one_dp_rank(server, what: str) -> None:
+    """Continuous batching runs on a mesh of one data-parallel rank (its
+    rows on every rank, heads over ``model``); rows over dp need pools
+    replicated over dp and prefix blocks shared across ranks (ROADMAP
+    A.7c)."""
+    ctx = getattr(server, "ctx", None)
+    if ctx is not None and ctx.dp_size > 1:
+        raise ValueError(
+            f"{what} on a mesh with {ctx.dp_size} data-parallel ranks is "
+            "not ported: its rows over dp need replicated pools and prefix "
+            "blocks shared across ranks (ROADMAP A.7c); serve on a mesh of "
+            "one data-parallel rank")
 
 
 @dataclasses.dataclass
@@ -400,6 +514,7 @@ class RequestPool:
     disables it.  Decoding is greedy, as in the JAX pool."""
 
     def __init__(self, server: Server, eos: int = -1, chunk: int = 8):
+        check_one_dp_rank(server, "RequestPool")
         if server.paged is not None:
             raise ValueError("RequestPool is the contiguous-slab fallback; a "
                              "paged Server is driven by "
@@ -540,8 +655,6 @@ def _load_run(cfg, args, device):
 
 
 def main(argv=None):
-    from repro_torch.configs.base import get_config
-
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="mosa-paper")
     p.add_argument("--preset", default="smoke")
@@ -583,6 +696,22 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    started = _world_size() > 1 and not dist.is_initialized()
+    if started:                   # torch.distributed.run: one mesh
+        from repro_torch.launch import mesh as mesh_lib
+        device = mesh_lib.init_process_group(args.device)
+    try:
+        _main(args, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _main(args, device):
+    from repro_torch.configs.base import get_config
+
+    say = print if not dist.is_initialized() or dist.get_rank() == 0 \
+        else (lambda *a, **k: None)
     akw = {"variant": args.variant} if args.variant else {}
     cfg = get_config(args.arch, preset=args.preset, **akw)
     if args.load_rate > 0:
@@ -608,17 +737,19 @@ def main(argv=None):
     t0 = time.perf_counter()
     toks = run()
     dt = time.perf_counter() - t0
-    print(f"generated {tuple(toks.shape)} in {dt:.2f}s on {device} "
-          f"({args.batch * args.gen / dt:.1f} tok/s, "
-          f"{'stepwise' if args.stepwise else 'chunked'})")
-    print(toks[0].tolist())
+    where = (f"{device}" if server.mesh is None else
+             f"{device}, mesh {dict(server.ctx.sizes)} x {server.rule_set}")
+    say(f"generated {tuple(toks.shape)} in {dt:.2f}s on {where} "
+        f"({args.batch * args.gen / dt:.1f} tok/s, "
+        f"{'stepwise' if args.stepwise else 'chunked'})")
+    say(toks[0].tolist())
     # the paper's KV metric, for a model with MoSA layers
     if cfg.mosa is not None:
         from repro_torch.core.hybrid import HybridAttention
         hy = HybridAttention(cfg.d_model, cfg.mosa, device="meta")
-        print(f"KV entries per MoSA layer: {hy.kv_total(args.max_len)} "
-              f"(dense equivalent: "
-              f"{args.max_len * (cfg.mosa.n_dense_heads + cfg.mosa.n_mosa_heads)})")
+        heads = cfg.mosa.n_dense_heads + cfg.mosa.n_mosa_heads
+        say(f"KV entries per MoSA layer: {hy.kv_total(args.max_len)} "
+            f"(dense equivalent: {args.max_len * heads})")
     obs.dump(args.metrics_path, args.trace_path, tag="serve-cli")
 
 

@@ -22,7 +22,10 @@ layer serves from a window ring (``WindowKVCache``, or
 ``specs()`` names the logical axes of every parameter, keyed like the
 ``state_dict`` (the JAX ``specs()`` tree with its scan units unstacked).
 On a mesh (``dist.parallel.shard_model``; ``mesh`` holds the
-``MeshContext``) the modules compute on their shards, the loss takes the
+``MeshContext``) the modules compute on their shards, serving builds
+this rank's caches (``init_cache``) and gives every rank the full logits
+(all-gathered across the vocabulary slices, so every rank samples the
+same tokens), the loss takes the
 logsumexp and the gold logit across the vocabulary slices, and
 ``loss(denom=...)`` divides by the mask count of the whole microbatch
 across the data-parallel ranks, so that the ranks' losses sum to one
@@ -88,6 +91,27 @@ def find_period(pattern, max_head: int = 4):
         return 0, 0, 0, 0
     _, _, head, p, units = best
     return head, p, units, head + p * units
+
+
+def packed_meta(cu_seqlens, rows, past_lens, C: int, device) -> dict:
+    """The layout of a packed prefill chunk of ``C`` token slots that the
+    layers' ``prefill_packed`` read: the segments' offsets, rows and pasts
+    as int32 tensors, each token's segment, offset, row and position (-1
+    / 0 for padding), and the (N, C) gather that unpacks the segments."""
+    cu = torch.as_tensor(cu_seqlens, device=device).to(torch.int32)
+    rows = torch.as_tensor(rows, device=device).to(torch.int32)
+    past = torch.as_tensor(past_lens, device=device).to(torch.int32)
+    seg, local, row_of_tok, _ = packed_token_layout(cu, rows, past, C)
+    segc = seg.clamp(min=0)
+    pos_of_tok = torch.where(row_of_tok >= 0, past.long()[segc] + local, 0)
+    t = torch.arange(C, device=device)
+    cul = cu.long()
+    tok_idx = (cul[:-1, None] + t[None]).clamp(0, C - 1)          # (N, C)
+    seg_len = cul[1:] - cul[:-1]
+    in_seg = (t[None] < seg_len[:, None]) & (rows >= 0)[:, None]
+    return dict(cu=cu, rows=rows, past_lens=past, seg_of_tok=seg,
+                local_of_tok=local, row_of_tok=row_of_tok,
+                pos_of_tok=pos_of_tok, tok_idx=tok_idx, in_seg=in_seg)
 
 
 class Block(nn.Module):
@@ -156,24 +180,25 @@ class Block(nn.Module):
                                          device=device)
         a = c.attention
         window = self.mixer.cfg.window
+        hkv = self.mixer.cache_heads()          # this rank's, on a mesh
         if window:
             W = min(window, max_len)
             if paged is not None:
                 return PagedWindowKVCache.create(
-                    batch, W, a.n_kv_heads, a.d_head, dtype,
+                    batch, W, hkv, a.d_head, dtype,
                     block_size=paged.block_size,
                     num_blocks=paged.num_window_blocks,
                     identity_tables=paged.num_window_blocks == 0,
                     device=device)
-            return WindowKVCache.create(batch, W, a.n_kv_heads, a.d_head,
-                                        dtype, device)
+            return WindowKVCache.create(batch, W, hkv, a.d_head, dtype,
+                                        device)
         if paged is not None:
             return PagedDenseKVCache.create(
-                batch, max_len, a.n_kv_heads, a.d_head, dtype,
+                batch, max_len, hkv, a.d_head, dtype,
                 block_size=paged.block_size, num_blocks=paged.num_blocks,
                 identity_tables=paged.num_blocks == 0, device=device)
-        return DenseKVCache.create(batch, max_len, a.n_kv_heads, a.d_head,
-                                   dtype, device)
+        return DenseKVCache.create(batch, max_len, hkv, a.d_head, dtype,
+                                   device)
 
     def prefill(self, x, cache, positions=None, valid=None,
                 continued: bool = False):
@@ -370,12 +395,54 @@ class TransformerLM(nn.Module):
         return health
 
     # ---------------------------------------------------------------- serving
-    def init_cache(self, batch, max_len, dtype=None, paged=None, device=None):
-        """One cache per layer; ``paged``: optional ``PagedConfig``."""
+    def init_cache(self, batch, max_len, dtype=None, paged=None, device=None,
+                   seq_sharded: bool = False):
+        """One cache per layer; ``paged``: optional ``PagedConfig``.  On a
+        mesh, this rank's caches (``dist.parallel.local_caches``): its rows
+        of ``batch`` over dp, its heads over ``model``, and with
+        ``seq_sharded`` its slice of the positions of the contiguous dense
+        and window caches."""
         dtype = dtype or self.cfg.cdtype
         device = device if device is not None else self.embed.table.device
+        if self.mesh is not None:
+            return self._mesh_caches(batch, max_len, dtype, paged, device,
+                                     seq_sharded)
         return [layer.init_cache(batch, max_len, dtype, paged=paged,
                                  device=device) for layer in self.layers]
+
+    def _mesh_caches(self, batch, max_len, dtype, paged, device,
+                     seq_sharded):
+        """The caches' local shapes from the full ones (a model on
+        ``meta``) under ``cache_spec``; every layer is told whether its
+        contiguous cache is seq-sharded and must serve its cache as
+        placed: a MoSA cache of other heads than the layer's, or a dense
+        cache of heads that the layer cannot serve, raises."""
+        from repro_torch.dist import sharding as shd
+        from repro_torch.dist.parallel import local_caches
+        ctx = self.mesh
+        full = TransformerLM(self.cfg, device="meta").init_cache(
+            batch, max_len, dtype, paged=paged, device="meta")
+        caches = local_caches(full, ctx.mesh, ctx.rule_set, seq_sharded,
+                              paged, device)
+        specs = shd.cache_shardings(full, ctx.mesh, ctx.rule_set,
+                                    seq_sharded)
+        for layer, cache, spec in zip(self.layers, caches, specs):
+            mha, dc, dsp = layer.mixer, cache, spec
+            if isinstance(mha, HybridAttention):
+                held = cache["sparse"].k.shape[1]
+                if held != mha.sparse.wq.shape[0]:
+                    raise ValueError(
+                        f"a MoSA cache of {held} heads beside "
+                        f"{mha.sparse.wq.shape[0]} heads of weights")
+                mha, dc, dsp = mha.dense, cache.get("dense"), spec.get(
+                    "dense")
+            if mha is None:
+                continue
+            mha.seq_sharded = (isinstance(dc, (DenseKVCache, WindowKVCache))
+                               and len(dsp.k) > 1
+                               and shd.TP_AXIS in shd.spec_axes(dsp.k[1]))
+            mha._serve_mode(dc)
+        return caches
 
     def prefill(self, tokens, caches, positions=None, valid=None,
                 last_pos=None, continued: bool = False):
@@ -394,7 +461,7 @@ class TransformerLM(nn.Module):
         else:
             xl = torch.gather(x, 1, last_pos.long()[:, None, None].expand(
                 -1, 1, x.shape[-1]))
-        return self._logits(xl), new
+        return self._full_logits(xl), new
 
     def prefill_packed(self, tokens, caches, cu_seqlens, rows, past_lens):
         """Packed multi-segment chunked prefill over paged caches.
@@ -405,23 +472,9 @@ class TransformerLM(nn.Module):
         already in each row's caches.  Returns ``(logits (N, V), caches)``:
         each segment's logits at its LAST token in this chunk (only
         segments completing their prompt have meaningful ones)."""
-        dev = tokens.device
         C = tokens.shape[1]
-        cu = torch.as_tensor(cu_seqlens, device=dev).to(torch.int32)
-        rows = torch.as_tensor(rows, device=dev).to(torch.int32)
-        past = torch.as_tensor(past_lens, device=dev).to(torch.int32)
-        seg, local, row_of_tok, _ = packed_token_layout(cu, rows, past, C)
-        segc = seg.clamp(min=0)
-        pos_of_tok = torch.where(row_of_tok >= 0, past.long()[segc] + local, 0)
-        t = torch.arange(C, device=dev)
-        cul = cu.long()
-        tok_idx = (cul[:-1, None] + t[None]).clamp(0, C - 1)      # (N, C)
-        seg_len = cul[1:] - cul[:-1]
-        in_seg = (t[None] < seg_len[:, None]) & (rows >= 0)[:, None]
-        meta = dict(cu=cu, rows=rows, past_lens=past, seg_of_tok=seg,
-                    local_of_tok=local, row_of_tok=row_of_tok,
-                    pos_of_tok=pos_of_tok, tok_idx=tok_idx, in_seg=in_seg)
-
+        meta = packed_meta(cu_seqlens, rows, past_lens, C, tokens.device)
+        cul = meta["cu"].long()
         x = self.embed(tokens)
         new = []
         for layer, cache in zip(self.layers, caches):
@@ -429,7 +482,7 @@ class TransformerLM(nn.Module):
             new.append(cache)
         x = self.final_norm(x)
         last = (cul[1:] - 1).clamp(0, C - 1)                      # (N,)
-        return self._logits(x[0][last]), new
+        return self._full_logits(x[0][last]), new
 
     def decode_step(self, token, caches, positions=None):
         """token: (B, 1) -> (logits (B, 1, V), caches)."""
@@ -438,7 +491,7 @@ class TransformerLM(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.decode_step(x, cache, positions)
             new.append(cache)
-        return self._logits(self.final_norm(x)), new
+        return self._full_logits(self.final_norm(x)), new
 
     def decode_many(self, tok, caches, generator=None, n: int = 1,
                     temperature: float = 0.0, top_k: int = 0,

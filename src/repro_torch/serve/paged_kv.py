@@ -26,6 +26,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.core.kv_cache import scatter_kept
+from repro_torch.dist.sharding import register_cache_axes
 from repro_torch.obs.metrics import registry as _obs_registry
 
 
@@ -324,6 +325,26 @@ class PagedWindowKVCache(NamedTuple):
         kk = self.k[bt].reshape(B, self.window, *self.k.shape[2:])
         vv = self.v[bt].reshape(B, self.window, *self.v.shape[2:])
         return kk, vv
+
+
+# Placements (``dist.sharding.CACHE_AXES``), as in the JAX package: pool
+# dim 0 is the PHYSICAL block dim, which any row's table may point into,
+# so it stays replicated over the data-parallel axes; the head dim shards
+# over ``model`` as in the contiguous caches; block tables and positions
+# are per-row metadata and follow the batch axes.
+register_cache_axes(PagedDenseKVCache, {
+    "k": (None, None, "kv_heads", None),
+    "v": (None, None, "kv_heads", None),
+    "block_table": ("batch", None),
+    "length": ("batch",),
+})
+register_cache_axes(PagedWindowKVCache, {
+    "k": (None, None, "kv_heads", None),
+    "v": (None, None, "kv_heads", None),
+    "block_table": ("batch", None),
+    "positions": ("batch", None),
+    "length": ("batch",),
+})
 
 
 def copy_blocks(cache: PagedDenseKVCache, src, dst) -> PagedDenseKVCache:

@@ -37,8 +37,15 @@ row's dense block chain one block at a time as decode proceeds:
     the decode dispatch's writes drop) and resumed before their next
     chunk.
 
-Differences from the JAX package: the server holds its module on one
-device (no mesh, no sharding hints); sampling goes through
+On a mesh (the server's ``ctx``) every rank runs the Scheduler on its
+shards and must make the same decisions (admission, packing, pauses,
+prefix inserts, growth, preemption).  They depend only on host state and
+on the sampled tokens, which every rank draws from the same all-gathered
+logits, so a step-indexed run needs no collective of its own; a timed run
+reads its arrivals on rank 0 alone and broadcasts them (``_pump``).  The
+mesh must have one data-parallel rank: rows over dp are ROADMAP A.7c.
+
+Differences from the JAX package: no sharding hints; sampling goes through
 ``sample_logits`` with a ``torch.Generator`` (greedy by default, as there);
 results are int32 CPU tensors; the whole ``run`` loop and every cache op
 runs under ``torch.inference_mode()``.
@@ -54,6 +61,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.kv_cache import MoSABlockKVCache, MoSAKVCache
@@ -63,6 +71,22 @@ from repro_torch.serve.prefix_cache import PrefixCache
 
 # Bounded retention for per-request SLO records.
 RECORDS_KEEP = 8192
+
+
+class _Submits:
+    """Stands for the Scheduler in a timed run's ``source.pump``: submits
+    to it and keeps what was submitted (to be broadcast to the other ranks
+    of a mesh); any other attribute is the Scheduler's."""
+
+    def __init__(self, sched):
+        self._sched, self.submitted = sched, []
+
+    def submit(self, prompt, max_new: int, tenant: str = "") -> int:
+        self.submitted.append((_tokens(prompt), max_new, tenant))
+        return self._sched.submit(prompt, max_new, tenant=tenant)
+
+    def __getattr__(self, name):
+        return getattr(self._sched, name)
 
 
 @dataclasses.dataclass
@@ -217,6 +241,8 @@ class Scheduler:
         Sampling: greedy when ``temperature == 0`` (the default, as the JAX
         scheduler); otherwise ``sample_logits`` with a ``torch.Generator``
         seeded from ``seed`` on the server's device."""
+        from repro_torch.launch.serve import check_one_dp_rank
+        check_one_dp_rank(server, "Scheduler")
         paged = server.paged
         if paged is None or paged.num_blocks <= 0:
             raise ValueError("Scheduler needs Server(paged=PagedConfig("
@@ -733,6 +759,33 @@ class Scheduler:
         with torch.inference_mode():
             return self._run(max_steps, source)
 
+    def _reads_source(self) -> bool:
+        """Whether this process reads a timed run's source: off a mesh it
+        does; on a mesh rank 0 alone does (``_pump``)."""
+        ctx = self.server.ctx
+        return ctx is None or ctx.world == 1 or ctx.rank == 0
+
+    def _pump(self, source, now: float, reader: bool) -> bool:
+        """Timed mode: submit the requests ``source`` has due by ``now``;
+        returns whether it is exhausted.  On a mesh every rank must make
+        the same decisions, so rank 0 alone pumps the source and
+        broadcasts what it submitted (one small collective per loop), and
+        the other ranks submit the same requests in the same order."""
+        if reader:
+            rec = _Submits(self)
+            source.pump(rec, now)
+            msg = [(rec.submitted, source.exhausted())]
+        else:
+            msg = [None]
+        if self.server.ctx is None or self.server.ctx.world == 1:
+            return msg[0][1]
+        dist.broadcast_object_list(msg, src=0)
+        submitted, exhausted = msg[0]
+        if not reader:
+            for prompt, max_new, tenant in submitted:
+                self.submit(prompt, max_new, tenant=tenant)
+        return exhausted
+
     def _run(self, max_steps, source):
         srv = self.server
         B = srv.batch
@@ -746,15 +799,20 @@ class Scheduler:
             return [b for b in range(B) if self._slots[b] is not None
                     and self._slots[b]["phase"] == phase]
 
+        reader = self._reads_source()
         while True:
+            exhausted = True
             if source is not None:
-                source.pump(self, obs.tracer().now() - t_run0)
+                exhausted = self._pump(source, obs.tracer().now() - t_run0,
+                                       reader)
             if not self.queue and all(s is None for s in self._slots):
-                if source is None or source.exhausted():
+                if exhausted:
                     break
-                wait = source.next_arrival_in(obs.tracer().now() - t_run0)
-                if wait is not None and wait > 0:
-                    time.sleep(min(wait, 0.05))
+                if reader:              # the other ranks wait in _pump
+                    wait = source.next_arrival_in(obs.tracer().now()
+                                                  - t_run0)
+                    if wait is not None and wait > 0:
+                        time.sleep(min(wait, 0.05))
                 continue
             for b in range(B):
                 if self._slots[b] is None and self.queue \

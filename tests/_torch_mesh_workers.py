@@ -231,15 +231,149 @@ def _hints_case(rank, mesh_lib, tmp):
                  "plain": plain}, f"{tmp}/hints_out.pt")
 
 
+def _serve_case(rank, mesh_lib, tmp):
+    """The hybrid's serving on a (1, 8) mesh: its own caches (contiguous
+    and paged), one prefill and a few decode steps; rank 0 saves the
+    outputs and its caches' shapes."""
+    from repro_torch.serve.paged_kv import PagedConfig
+    inp = torch.load(f"{tmp}/serve8_in.pt")
+    mesh = mesh_lib.make_mesh(inp["mesh"], ("data", "model"), "cpu")
+    layer, _, _ = _sharded_layer(inp["spec"], inp["state"], mesh)
+    x, T, L = inp["x"], inp["prompt"], inp["max_len"]
+    out = {}
+    for name, paged in (("dense", None), ("paged", PagedConfig(8))):
+        caches = layer.init_cache(x.shape[0], L, torch.float32, paged=paged)
+        with torch.inference_mode():
+            y, caches = layer.prefill(x[:, :T], caches)
+            ys = [y]
+            for t in range(T, x.shape[1]):
+                y, caches = layer.decode_step(x[:, t:t + 1], caches)
+                ys.append(y)
+        out[name] = {"ys": ys, "heads": (caches["sparse"].k.shape[1],
+                                         caches["dense"].k.shape[-2]),
+                     "mode": layer.dense._serve_mode(caches["dense"])}
+    _save(rank, out, f"{tmp}/serve8_out.pt")
+
+
 def layers_worker(rank, world, tmp):
     """8 ranks: MoSA heads over ``model`` = 4 on (data 2, model 4); the
     hybrids over ``model`` = 8 (a dense slice is half a head); GQA
     attention over ``model`` = 8 with its kv heads replicated; the
-    pipeline; the compressed all-reduce; ``hints.constrain``."""
+    hybrid's serving over ``model`` = 8 (276 MoSA heads replicated, half a
+    dense head a rank); the pipeline; the compressed all-reduce;
+    ``hints.constrain``."""
     mesh_lib = _start(rank, world, tmp)
     for case in ("mosa4", "hybrid8", "gated8", "gqa8"):
         _layer_case(rank, mesh_lib, case, tmp)
+    _serve_case(rank, mesh_lib, tmp)
     _pipeline_case(rank, mesh_lib, tmp)
     _compress_case(rank, mesh_lib, tmp)
     _hints_case(rank, mesh_lib, tmp)
+    dist.destroy_process_group()
+
+
+# --------------------------------------------------------------- serving
+def _server(inp, name, mesh, **kw):
+    """A ``Server`` of the smoke config ``name`` on ``mesh`` (its converted
+    weights read once a process)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    cfg = get_config("mosa-paper", **inp["configs"][name])
+    states = inp.setdefault("states", {})
+    if name not in states:
+        states[name] = torch.load(f"{inp['tmp']}/{name}.pt")
+    return Server(cfg, device="cpu", params=states[name], mesh=mesh, **kw)
+
+
+def _served_logits(srv, prompts, n):
+    """Prefill logits and ``n`` decode steps' logits of greedy decoding
+    (the whole batch's, gathered over dp by the caller where needed)."""
+    with torch.inference_mode():
+        rows = srv._local_rows(prompts)
+        logits, caches = srv.model.prefill(rows, srv.new_cache())
+        tok0 = logits[:, -1].argmax(-1)[:, None]
+        _, dec, caches = srv.model.decode_many(tok0, caches, n=n,
+                                               return_logits=True)
+    return logits[:, -1], dec, caches
+
+
+def _cache_shapes(caches):
+    out = []
+    for c in caches:
+        out.append({k: {f: tuple(t.shape) for f, t in zip(v._fields, v)}
+                    for k, v in c.items()})
+    return out
+
+
+def _all_ranks(obj, world):
+    objs = [None] * world
+    dist.all_gather_object(objs, obj)
+    return objs
+
+
+def serve_worker(rank, world, tmp):
+    """4 ranks: the smoke models served on a (1, 4) mesh under ``tp``
+    (``generate`` and its logits, a step-indexed and a timed Scheduler
+    run, block choice), on a (2, 2) mesh under ``fsdp_tp`` with rows over
+    dp (and the A.7c refusals), and batch 1 with ``seq_sharded`` caches."""
+    mesh_lib = _start(rank, world, tmp)
+    from repro_torch.launch.serve import RequestPool
+    from repro_torch.serve.loadgen import Arrival, OpenLoopSource
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    inp = torch.load(f"{tmp}/serve_in.pt")
+    inp["tmp"] = tmp
+    prompts, G, L = inp["prompts"], inp["gen"], inp["max_len"]
+    out = {}
+    tp4 = mesh_lib.make_mesh((1, 4), ("data", "model"), "cpu")
+    for name in ("sp32", "sp8", "block"):
+        srv = _server(inp, name, tp4, batch=prompts.shape[0], max_len=L,
+                      paged=PagedConfig(16))
+        toks, caches = srv.generate(prompts, G)
+        last, dec, _ = _served_logits(srv, prompts, G - 1)
+        res = {"toks": toks, "prefill_logits": last, "decode_logits": dec,
+               "caches": _cache_shapes(caches)}
+        if name != "block":
+            bs, nb = inp["sched_paged"]
+            ssrv = _server(inp, name, tp4, batch=2, max_len=L,
+                           paged=PagedConfig(bs, num_blocks=nb))
+            sched = Scheduler(ssrv, chunk=4)
+            for p, m in inp["sched_reqs"]:
+                sched.submit(p, m)
+            res["sched"] = (sched.run(), dict(sched.stats))
+            # the same requests in timed mode, arriving 20 ms apart
+            timed = Scheduler(ssrv, chunk=4)
+            src = OpenLoopSource([Arrival(0.02 * i, "", p.numpy(), m)
+                                  for i, (p, m) in enumerate(
+                                      inp["sched_reqs"])])
+            got = timed.run(source=src)
+            res["timed"] = _all_ranks(
+                ({k: v.tolist() for k, v in got.items()},
+                 dict(timed.stats)), world)
+        out[name] = res
+
+    mesh22 = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    srv = _server(inp, "sp32", mesh22, batch=prompts.shape[0], max_len=L,
+                  paged=PagedConfig(16), rule_set="fsdp_tp")
+    toks, caches = srv.generate(prompts, G)
+    out["fsdp_tp"] = {"toks": toks, "rows": srv.rows,
+                      "caches": _cache_shapes(caches)}
+    errors = {}
+    s = _server(inp, "sp8", mesh22, batch=2, max_len=L, rule_set="fsdp_tp",
+                paged=PagedConfig(8, num_blocks=8))
+    for what, cls in (("Scheduler", Scheduler), ("RequestPool", RequestPool)):
+        try:
+            cls(s)
+        except ValueError as e:
+            errors[what] = str(e)
+    out["fsdp_tp"]["errors"] = errors
+
+    srv = _server(inp, "sp32", tp4, batch=1, max_len=L, seq_sharded=True)
+    toks, caches = srv.generate(prompts[:1], G)
+    last, dec, _ = _served_logits(srv, prompts[:1], G - 1)
+    out["seq"] = {"toks": toks, "prefill_logits": last, "decode_logits": dec,
+                  "caches": _cache_shapes(caches),
+                  "seq_flags": [l.mixer.dense.seq_sharded
+                                for l in srv.model.layers]}
+    _save(rank, out, f"{tmp}/serve_out.pt")
     dist.destroy_process_group()

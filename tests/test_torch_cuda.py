@@ -1167,3 +1167,40 @@ def test_mesh_trainer_world1_nccl_step_matches_plain(dev, tmp_path):
     assert full.keys() == p0.keys()
     for k, p in p0.items():
         torch.testing.assert_close(full[k], p.detach(), atol=1e-6, rtol=0)
+
+
+def test_mesh_server_world1_nccl_matches_plain(dev, tmp_path):
+    """``Server`` on a one-rank NCCL mesh (1, 1) under ``tp`` against the
+    plain ``Server`` on the same weights, both under deterministic
+    algorithms (``index_add_``'s atomics make two runs differ): identical
+    greedy tokens, and the paged kernels' launches of the plain run."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve import paged_attention as P
+    from repro_torch.serve.paged_kv import PagedConfig
+    cfg = get_config("mosa-paper", preset="smoke", variant="mosa",
+                     sparsity=32, seq_len=1024)
+    prompts = torch.randint(2, cfg.vocab, (4, 96),
+                            generator=torch.Generator().manual_seed(0))
+    kw = dict(batch=4, max_len=128, paged=PagedConfig(16), seed=0)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh_lib.init_process_group("cuda", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0)
+    try:
+        plain = Server(cfg, **kw)
+        before = P.LAUNCHES.count
+        want, _ = plain.generate(prompts, 16)
+        n_plain = P.LAUNCHES.count - before
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        srv = Server(cfg, mesh=mesh, rule_set="tp", **kw)
+        assert dist.get_backend() == "nccl"
+        before = P.LAUNCHES.count
+        got, _ = srv.generate(prompts, 16)
+        assert P.LAUNCHES.count - before == n_plain == cfg.n_layers * 15
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(got, want)

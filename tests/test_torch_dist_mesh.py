@@ -12,7 +12,9 @@ computation in this process:
      JAX's layer, as JAX's head-parallel test; the hybrid over ``model`` =
      8, where a rank's slice of the dense heads is half a head, plain and
      gated (block choice beside window heads); GQA attention at ``model``
-     = 8 with replicated kv heads and biases;
+     = 8 with replicated kv heads and biases; the hybrid's serving
+     (``prefill`` and ``decode_step``) at ``model`` = 8 with 276 MoSA
+     heads, against JAX's layer;
   3. the GPipe pipeline over 4 stages against sequential application, its
      gradients against the sequential ones, and JAX's validation errors;
   4. ``compressed_all_reduce`` over ``pod`` of a (pod 2, data 4) mesh:
@@ -229,6 +231,37 @@ LAYER_CASES = {
 }
 
 
+# the hybrid's serving at model = 8: 276 MoSA heads (replicated: 276 % 8)
+# and 4 dense heads of 16 (half a head a rank; their caches replicated)
+SERVE_SPEC = dict(n_mosa_heads=276, sparsity=4, n_dense_heads=4, d_head=16)
+SERVE_PROMPT, SERVE_LEN = 16, 32
+
+
+def _serve_inputs(tmp, refs):
+    """JAX's layer ``prefill`` of a 16-token prompt and 3 ``decode_step``s,
+    over a contiguous and a paged (identity tables) dense cache."""
+    from repro.serve.paged_kv import PagedConfig as JPagedConfig
+    jl = JHybrid(64, JMoSAConfig(**SERVE_SPEC))
+    params = numpy_params(jax.eval_shape(jl.init, jax.random.PRNGKey(0)),
+                          40)
+    x = np.random.default_rng(41).standard_normal(
+        (2, SERVE_PROMPT + 3, 64)).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, params)
+    prefill, decode = jax.jit(jl.prefill), jax.jit(jl.decode_step)
+    for name, paged in (("dense", None), ("paged", JPagedConfig(8))):
+        caches = jl.init_cache(2, SERVE_LEN, jnp.float32, paged=paged)
+        y, caches = prefill(jp, jnp.asarray(x[:, :SERVE_PROMPT]), caches)
+        ys = [np.asarray(y)]
+        for t in range(SERVE_PROMPT, x.shape[1]):
+            y, caches = decode(jp, jnp.asarray(x[:, t:t + 1]), caches)
+            ys.append(np.asarray(y))
+        refs[f"serve8_{name}"] = ys
+    torch.save({"mesh": (1, 8), "spec": SERVE_SPEC, "prompt": SERVE_PROMPT,
+                "max_len": SERVE_LEN, "x": torch.from_numpy(x),
+                "state": {k: torch.from_numpy(np.asarray(v)) for k, v in
+                          _flat(params).items()}}, tmp / "serve8_in.pt")
+
+
 @pytest.fixture(scope="module")
 def layers(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_layers")
@@ -254,6 +287,7 @@ def layers(tmp_path_factory):
                     "x": torch.from_numpy(x), "dy": torch.from_numpy(dy)},
                    tmp / f"{case}_in.pt")
         refs[case] = (np.asarray(y), _flat(jax.tree.map(np.asarray, gp)))
+    _serve_inputs(tmp, refs)
     g = torch.Generator().manual_seed(0)
     ws = [torch.randn(16, 16, generator=g) * 0.3 for _ in range(4)]
     torch.save({"ws": ws, "x": torch.randn(8, 16, generator=g)},
@@ -285,6 +319,18 @@ def test_head_parallel_layer_matches_jax(layers, case):
     if case != "mosa4":          # rank 0's dense columns: half of head 0
         assert got["q_cols"] == (0, 8)
         assert got["local_shapes"]["dense.wq"] == (64, 8)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_hybrid_serving_at_model8_matches_jax(layers, cache):
+    """276 MoSA heads replicated and half a dense head a rank (the dense
+    caches replicated, as ``cache_spec`` places 4 heads over 8): prefill
+    and every decode step within 1e-5 of JAX's layer."""
+    tmp, refs = layers
+    got = torch.load(tmp / "serve8_out.pt")[cache]
+    assert got["heads"] == (276, 4) and got["mode"] == "full"
+    for y, want in zip(got["ys"], refs[f"serve8_{cache}"], strict=True):
+        np.testing.assert_allclose(y.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 def test_pipeline_matches_sequential(layers):
