@@ -230,15 +230,47 @@ Phases (any failure raises, so the script exits nonzero):
      both round alike), the shards' outputs summed within 1e-5 relative
      of the unsharded layer's; then the dense side's
      ``seq_sharded`` decode over 4 position slices, each in a thread of
-     its own, merged within 1e-5 relative of the unsplit decode.
+     its own, merged within 1e-5 relative of the unsplit decode;
+ 36. the wide route (head dims over 128, ``csrc/wide_attention.cu``): all
+     12 kernels at d 160, 192 and 256 against their plain versions, fp32
+     and bf16, under phase 3's tolerances (#1-#4 at gemma3-4b-mosa32's
+     (4, 32, 64) and at S 70 and 128 with -1 keys, r = 0 rows, segments
+     and unsorted idx; #5-#8 with a ragged last block, empty blocks and
+     two segments; #9 with GQA, windows and q_offset; #10 with a padding
+     tail; #11 at GQA groups 2, 6 and 7 with a row of length 0; #12 at
+     the gemma3-4b chunk and phase 3's edges), each wrapper call one
+     count, two launches bitwise equal; then each timed at d 256 as phase
+     4 times the others, beside its bound and SDPA at the same shape;
+ 37. ``qwen2-1.5b``, ``yi-9b``, ``musicgen-large``, ``gemma3-4b`` and
+     ``yi-34b`` served one after another at full width in bf16, random
+     weights from seed 0: ``Server.generate`` of batch 4 x a 2048-token
+     prompt + 32 greedy tokens on paged KV (yi-34b at the deepest depth
+     that leaves 4 GiB of the card free, full depth if it does), exactly
+     one launch of #11 per global attention layer and decode step and 0
+     of every other kernel; depth, parameters, peak memory, the caches'
+     bytes (``cache_nbytes``), prefill ms and decode tok/s of each; then
+     its first two layers (gemma3-4b: a local and a global one) in bf16
+     against fp32 on the same weights (prefill logits within 5% of the
+     largest logit), and in fp32 at full width and 2 layers (the
+     vocabulary cut to 512 where its tables pass 2 GiB) card against CPU:
+     identical greedy tokens;
+ 38. gemma3-4b's other paths at full width: the Scheduler (8 requests of
+     100-1000 tokens; exactly 5 x chunks of #12 and 5 x decode steps of
+     #11 at d 256, both pools back), the contiguous window rings with
+     every attention layer on the kernel route (exactly 29 launches of #9
+     at d 256 per generate), and ``gemma3-4b-mosa32`` (32 MoSA + 4 dense
+     heads of d 256 a layer) through ``generate`` as phase 37 (34 of #1,
+     34 x 31 of #11), with its bf16 and card-vs-CPU checks.
 
-Phases 3 and 4 hold and time #9 and #10 too.  The last twelve lines are
+Phases 3 and 4 hold and time #9 and #10 too.  The last fifteen lines are
 the ``serve`` JSON, the ``train`` JSON, the ``sched`` JSON (phases 26 and
 27 under ``window``), the ``block`` JSON, the ``window`` JSON, the
 ``sweep`` JSON, the ``pool`` JSON (28, 28b), the ``remat`` JSON (29), the
-``dist`` JSON (30-35), the ``kernels`` JSON (with each kernel's launches
-in 33-35, ``launches_mesh``), the ``nvidia-smi`` name and
-power limit, and the result JSON.
+``dist`` JSON (30-35), the ``wide`` JSON (36's times), the ``archs`` JSON
+(37), the ``gemma`` JSON (38), the ``kernels`` JSON (with each kernel's
+launches in 33-35, ``launches_mesh``, its launches at d 256 in 37 and 38,
+``launches_d256``, and its d 256 row from 36, ``d256``), the
+``nvidia-smi`` name and power limit, and the result JSON.
 """
 
 from __future__ import annotations
@@ -353,10 +385,11 @@ def max_err(torch, got, want, atol, rtol):
 def check_case(torch, kernel, plain, name, case, errs, parts=None,
                zeros=()):
     """Runs ``kernel`` in fp32 and bf16 against ``plain`` in fp32 on the
-    same (rounded) inputs; records the fp32 error of the slice's case.
+    same (rounded) inputs; records the fp32 error of the slice's case as
+    ``label``, of [24]'s mosa8 case as ``label@sweep``, and the largest
+    fp32 error of every case so far as ``label@max``.
     With ``parts``, both return a tuple of outputs, each checked and
-    recorded as ``name.part``; the fp32 error of [24]'s mosa8 case is
-    recorded as ``label@sweep``.  The parts named in ``zeros`` are zero in
+    recorded as ``name.part``.  The parts named in ``zeros`` are zero in
     exact arithmetic on this case (dq and dk at S = 1, where a softmax over
     one key passes no gradient to its score): in both dtypes the kernel's
     output and the plain version's must each lie within ``FP32_TOL`` of
@@ -379,6 +412,8 @@ def check_case(torch, kernel, plain, name, case, errs, parts=None,
             atol, rtol = ((FP32_TOL, FP32_TOL) if dt == torch.float32
                           else bf16_tol(w))
             e = max_err(torch, g, w, atol, rtol)
+            if dt == torch.float32:
+                errs[f"{label}@max"] = max(e, errs.get(f"{label}@max", 0.0))
             if dt == torch.float32 and case.startswith("slice"):
                 errs[label] = e
             if dt == torch.float32 and case.startswith("sweep"):
@@ -1220,10 +1255,11 @@ def time_kernels(torch, dev):
     return out
 
 
-def time_decode_kernel(torch, dev, gen, flush, lens, d=64):
+def time_decode_kernel(torch, dev, gen, flush, lens, d=64, Hq=4, Hkv=4,
+                       nb=72):
     """#11 (fp32) over rows of ``lens`` positions: Hq = Hkv = 4, d 64 (or
-    ``d``: outside 32, 64, 128 the wrapper's pad route), 72 blocks of 16
-    under scattered tables.  Bytes: each valid position's K and
+    ``d``: outside 32, 64, 128, 256 the wrapper's pad route), 72 blocks of
+    16 (or ``Hq``, ``Hkv``, ``nb``) under scattered tables.  Bytes: each valid position's K and
     V read once, q and the output, the table and lengths; operations: 4*d
     per (query head, valid position).  The yardstick is one SDPA call over
     the rows' KV gathered (outside the timing) to (B, Hkv, nb * bs, d) with
@@ -1233,13 +1269,14 @@ def time_decode_kernel(torch, dev, gen, flush, lens, d=64):
     import torch.nn.functional as F
     from repro_torch.serve.paged_attention import (paged_attention_cuda,
                                                    paged_attention_ref)
-    B, Hq, Hkv, bs, nb = len(lens), 4, 4, 16, 72
+    B, bs = len(lens), 16
     q, kp, vp, table, lengths = paged_inputs(torch, B, Hq, Hkv, d, bs, nb,
                                              lens, dev, gen)
     scale = d ** -0.5
     kk = kp[table.long()].reshape(B, nb * bs, Hkv, d).transpose(1, 2)
     vv = vp[table.long()].reshape(B, nb * bs, Hkv, d).transpose(1, 2)
-    kk, vv = kk.contiguous(), vv.contiguous()
+    kk, vv = (x.repeat_interleave(Hq // Hkv, 1).contiguous()
+              for x in (kk, vv))
     kmask = (torch.arange(nb * bs, device=dev)[None] < lengths[:, None].long())
     kmask = kmask[:, None, None, :]
     nbytes = (sum(lens) * Hkv * d * 2 * 4 + 2 * B * Hq * d * 4 + B * nb * 4
@@ -1258,11 +1295,12 @@ def time_decode_kernel(torch, dev, gen, flush, lens, d=64):
         bytes=nbytes, flops=4 * sum(lens) * Hq * d), call
 
 
-def time_prefill_kernel(torch, dev, gen, flush, case, d=None):
+def time_prefill_kernel(torch, dev, gen, flush, case, d=None, **over):
     """#12 on the chunk ``PREFILL_CASES[case]`` (fp32): the slice's 256
     packed tokens in 4 segments of 64 with pasts 0, 256, 512, 960, or one
     segment of 256 at past 768; bs 16; ``d`` overrides the case's head
-    dim (outside 32, 64, 128: the wrapper's pad route).  Bytes: q and the output, and each
+    dim (outside 32, 64, 128, 256: the wrapper's pad route) and ``over``
+    any other field of the case.  Bytes: q and the output, and each
     active segment's visible K/V read once; operations: 4*d per valid
     (query, key) pair and query head, counted from this run's segments.
     The yardstick is one SDPA call over the per-segment KV gathered (outside
@@ -1274,7 +1312,7 @@ def time_prefill_kernel(torch, dev, gen, flush, case, d=None):
     from repro_torch.serve.paged_attention import (
         packed_token_layout, paged_prefill_attention_cuda,
         paged_prefill_attention_ref)
-    kw = dict(PREFILL_CASES[case], **({} if d is None else {"d": d}))
+    kw = dict(PREFILL_CASES[case], **({} if d is None else {"d": d}), **over)
     q, kp, vp, table, cu, rows, past = prefill_inputs(torch, dev, gen, **kw)
     Hq, Hkv, d, bs = kw["Hq"], kw["Hkv"], kw["d"], kw["bs"]
     scale = d ** -0.5
@@ -1666,7 +1704,8 @@ def profile_summary(torch, prof, wall_ms, steps):
 def cross_check(torch, server, cfg, prompts, P=256, paged=True):
     """The card against the CPU: same weights, batch 1, prompt ``P``, the
     dense side on ``server``'s route, paged dense/window KV (or contiguous
-    caches with ``paged=False``).  With block choice every layer's
+    caches with ``paged=False``): the prefill logits, the logits of G - 1
+    decode steps and the G greedy tokens.  With block choice every layer's
     selected blocks must be identical too."""
     from repro_torch.launch.serve import Server
     from repro_torch.serve.paged_kv import PagedConfig
@@ -1678,27 +1717,40 @@ def cross_check(torch, server, cfg, prompts, P=256, paged=True):
     cpu = Server(cfg, params=state, device="cpu", **kw)
     for srv in (gpu, cpu):
         for dst, src in zip(srv.model.layers, server.model.layers):
-            dst.mixer.dense_impl = src.mixer.dense_impl
+            if hasattr(src.mixer, "dense_impl"):
+                dst.mixer.dense_impl = src.mixer.dense_impl
     p = prompts[:1, :P]
-    with torch.inference_mode():
-        lg, _ = gpu.model.prefill(p.cuda(), gpu.new_cache())
-        lc, _ = cpu.model.prefill(p, cpu.new_cache())
-    err = (lg.cpu() - lc).abs().max().item()
     tg, cg = gpu.generate(p, G)
     tc, cc = cpu.generate(p, G)
-    log(f"  prefill logits max|gpu - cpu| {err:.3e} (tol 1e-3); tokens "
-        f"gpu {tg[0].tolist()} cpu {tc[0].tolist()}")
+    with torch.inference_mode():
+        lg, kg = gpu.model.prefill(p.cuda(), gpu.new_cache())
+        lc, kc = cpu.model.prefill(p, cpu.new_cache())
+        err = (lg.cpu() - lc).abs().max().item()
+        # the decode steps' logits, both fed the CPU's greedy tokens: a
+        # repeated token (as a tied table's self-logit gives) still shows
+        # a wrong decode path here
+        derr = 0.0
+        for t in range(G - 1):
+            tok = tc[:, t:t + 1]
+            lg, kg = gpu.model.decode_step(tok.cuda(), kg)
+            lc, kc = cpu.model.decode_step(tok, kc)
+            derr = max(derr, (lg.cpu() - lc).abs().max().item())
+    log(f"  prefill logits max|gpu - cpu| {err:.3e}, {G - 1} decode steps' "
+        f"{derr:.3e} (tol 1e-3); tokens gpu {tg[0].tolist()} cpu "
+        f"{tc[0].tolist()}")
     if not err <= 1e-3:
         raise AssertionError(f"prefill logits differ by {err}")
+    if not derr <= 1e-3:
+        raise AssertionError(f"decode logits differ by {derr}")
     if not torch.equal(tg.cpu(), tc):
         raise AssertionError("greedy tokens differ between card and CPU")
-    if cfg.mosa.selection_granularity == "block":
+    if cfg.mosa is not None and cfg.mosa.selection_granularity == "block":
         differ = [int((a["sparse"].bidx.cpu() != b["sparse"].bidx).any(-1)
                       .sum()) for a, b in zip(cg, cc)]
         log(f"  heads whose blocks differ, per layer: {differ}")
         if any(differ):
             raise AssertionError(f"block selections differ: {differ}")
-    return err
+    return dict(prefill=err, decode=derr)
 
 
 # ------------------------------------------------------------- training
@@ -2402,9 +2454,12 @@ def check_flash_kernels(torch, dev, gen, errs):
 
 
 def check_twice(torch, name, case, kernel):
-    """Two launches of ``kernel(dtype)`` bitwise equal, fp32 and bf16."""
+    """Two launches of ``kernel(dtype)`` (a tensor or a tuple) bitwise
+    equal, fp32 and bf16."""
     for dt in (torch.float32, torch.bfloat16):
-        if not torch.equal(kernel(dt), kernel(dt)):
+        a, b = kernel(dt), kernel(dt)
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"{name} ({case}, {dt}): two launches "
                                  "differ")
     log(f"  {name:31s} {case:40s} two launches bitwise equal (fp32, bf16)")
@@ -3884,6 +3939,921 @@ def tp_serve_shards_slice(torch, m=4, dims=(8, 1024, 1152, 64, 8)):
     return res
 
 
+# ------------------------------------------------- wide-head kernels ([36])
+# Head dims over 128 take each family's wide route (csrc/wide_attention.cu,
+# the inputs zero-padded to 256); [36] holds all 12 kernels at these dims.
+WIDE_DIMS = (160, 192, 256)
+# gemma3-4b-mosa32's MoSA rows in prefill: batch 4 x 32 heads, k = 2048 /
+# 32 = 64 selected tokens of width 256
+WIDE_MOSA = dict(B=4, H=32, S=64, T=2048)
+WIDE_BLOCK = dict(B=4, H=32, NB=4, bs=16, T=2048)
+# gemma3-4b's #9 shape: batch 4 x 8 query heads (4 KV heads) x 2048 tokens
+WIDE_FLASH = (4, 8, 4, 2048)
+WIDE_WINDOW = 1024
+# #11 at gemma3-4b's decode: 4 rows of 2080 positions (2048 + 32), pages 16
+WIDE_DECODE = dict(B=4, Hq=8, Hkv=4, bs=16, nb=130, lengths=[2080] * 4)
+# #12 at one Scheduler chunk of gemma3-4b: [11]'s chunk of 4 segments
+WIDE_PREFILL = dict(PREFILL_CASES[PREFILL_SLICE], Hq=8, Hkv=4)
+
+
+def wide_mosa_cases(d):
+    return {f"(4,32,64) as gemma3-4b-mosa32, -1 keys, d={d}": dict(
+                WIDE_MOSA, d=d, neg_keys=5),
+            f"S 128 unsorted, segments, -1 keys, d={d}": dict(
+                B=1, H=4, S=128, T=1024, d=d, unsorted=True, with_seg=True,
+                neg_keys=9),
+            f"S 70, r = 0 rows, d={d}": dict(B=2, H=3, S=70, T=300, d=d,
+                                              zero_rows=3)}
+
+
+def wide_block_cases(d):
+    return {f"4x32 rows NB 4 bs 16, ragged T, d={d}": dict(
+                WIDE_BLOCK, T=2041, d=d),
+            f"NB 5 bs 13, empty blocks, two segments, d={d}": dict(
+                B=1, H=4, NB=5, bs=13, T=200, d=d, empty=3, two_segs=True)}
+
+
+def check_wide_mosa(torch, dev, gen, errs, d):
+    """#1-#4 at head dim d on the wide route: the forwards against their
+    plain versions, the split backward on the plain forward's g~, lse and
+    delta; each wrapper call one count, two launches bitwise equal."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kb
+    for case, kw in wide_mosa_cases(d).items():
+        if km.fwd_route(kw["S"], d) != "wide":
+            raise AssertionError(f"({kw['S']}, {d}) is not on the wide route")
+        q, k, v, idx, r, seg = mosa_inputs(torch, dev=dev, gen=gen, **kw)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+
+        def fwd(dt):
+            return counted_once(km.LAUNCHES, lambda: km.mosa_attention_cuda(
+                q.to(dt), k.to(dt), v.to(dt), idx, r, seg=seg),
+                f"mosa_attention ({case})")
+
+        def res(dt):
+            return counted_once(
+                km.LAUNCHES_FWD_RES, lambda: km.mosa_attention_fwd_res_cuda(
+                    q.to(dt), k.to(dt), v.to(dt), idx, seg=seg),
+                f"mosa_attention_fwd_res ({case})")
+
+        check_case(torch, fwd, lambda dt: km.mosa_attention_ref(
+            *(t.to(dt).float() for t in (q, k, v)), idx, r, seg=seg),
+            "mosa_attention", case, errs)
+        check_case(torch, res, lambda dt: km.mosa_attention_fwd_res_ref(
+            *(t.to(dt).float() for t in (q, k, v)), idx, seg=seg),
+            "mosa_attention_fwd_res", case, errs, ("o_pre", "lse"))
+
+        def bwd_args(dt, cast):
+            qq, kk, vv = (cast(t.to(dt)) for t in (q, k, v))
+            o_pre, lse = km.mosa_attention_fwd_res_ref(
+                *(t.float() for t in (qq, kk, vv)), idx, seg=seg)
+            gt = (g * r[..., None]).contiguous()
+            return (qq, kk, vv, idx, gt, lse,
+                    (gt * o_pre).sum(-1).contiguous())
+
+        def split(dt):
+            args = bwd_args(dt, lambda t: t)
+            dq = counted_once(kb.LAUNCHES_DQ, lambda: kb.mosa_attention_bwd_dq_cuda(
+                *args, seg=seg), f"mosa_attention_bwd_dq ({case})")
+            dk, dv = counted_once(
+                kb.LAUNCHES_DKV, lambda: kb.mosa_attention_bwd_dkv_cuda(
+                    *args, seg=seg), f"mosa_attention_bwd_dkv ({case})")
+            return dq, dk, dv
+
+        check_case(torch, split, lambda dt: kb.mosa_attention_bwd_ref(
+            *bwd_args(dt, lambda t: t.float()), seg=seg),
+            "mosa_attention_bwd[split]", case, errs, ("dq", "dk", "dv"))
+        for name, fn in (("mosa_attention", fwd), ("fwd_res", res),
+                         ("bwd", split)):
+            check_twice(torch, name, case, fn)
+
+
+def check_wide_block(torch, dev, gen, errs, d):
+    """#5-#8 at head dim d on the wide route, as ``check_wide_mosa``;
+    invalid query rows exact zeros."""
+    from repro_torch.kernels import mosa_block as kb
+    for case, kw in wide_block_cases(d).items():
+        q, k, v, bidx, rblk, seg = block_inputs(torch, dev=dev, gen=gen,
+                                                **kw)
+        bs, T = kw["bs"], kw["T"]
+        _, ok = kb.expand_blocks(bidx, bs, T)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+
+        def fwd(dt):
+            out = counted_once(kb.LAUNCHES, lambda: kb.mosa_block_attention_cuda(
+                q.to(dt), k.to(dt), v.to(dt), bidx, rblk, bs, T, seg=seg),
+                f"mosa_block_attention ({case})")
+            if (out[~ok] != 0).any():
+                raise AssertionError(f"mosa_block_attention ({case}): "
+                                     "invalid query rows not zero")
+            return out
+
+        def res(dt):
+            return counted_once(
+                kb.LAUNCHES_FWD_RES,
+                lambda: kb.mosa_block_attention_fwd_res_cuda(
+                    q.to(dt), k.to(dt), v.to(dt), bidx, bs, T, seg=seg),
+                f"mosa_block_attention_fwd_res ({case})")
+
+        check_case(torch, fwd, lambda dt: kb.mosa_block_attention_ref(
+            *(t.to(dt).float() for t in (q, k, v)), bidx, rblk, bs, T,
+            seg=seg), "mosa_block_attention", case, errs)
+        check_case(torch, res, lambda dt: kb.mosa_block_attention_fwd_res_ref(
+            *(t.to(dt).float() for t in (q, k, v)), bidx, bs, T, seg=seg),
+            "mosa_block_attention_fwd_res", case, errs, ("o_pre", "lse"))
+
+        def bwd_args(dt, cast):
+            qq, kk, vv = (cast(t.to(dt)) for t in (q, k, v))
+            o_pre, lse = kb.mosa_block_attention_fwd_res_ref(
+                *(t.float() for t in (qq, kk, vv)), bidx, bs, T, seg=seg)
+            gt = torch.where(ok[..., None], kb.scale_rows(g, rblk, bs),
+                             0.0).contiguous()
+            return (qq, kk, vv, bidx, gt, lse,
+                    (gt * o_pre).sum(-1).contiguous(), bs, T)
+
+        def split(dt):
+            args = bwd_args(dt, lambda t: t)
+            dq = counted_once(
+                kb.LAUNCHES_DQ, lambda: kb.mosa_block_attention_bwd_dq_cuda(
+                    *args, seg=seg), f"mosa_block_attention_bwd_dq ({case})")
+            dk, dv = counted_once(
+                kb.LAUNCHES_DKV,
+                lambda: kb.mosa_block_attention_bwd_dkv_cuda(*args, seg=seg),
+                f"mosa_block_attention_bwd_dkv ({case})")
+            return dq, dk, dv
+
+        check_case(torch, split, lambda dt: kb.mosa_block_attention_bwd_ref(
+            *bwd_args(dt, lambda t: t.float()), seg=seg),
+            "mosa_block_attention_bwd[split]", case, errs, ("dq", "dk", "dv"))
+        for name, fn in (("mosa_block_attention", fwd),
+                         ("block fwd_res", res), ("block bwd", split)):
+            check_twice(torch, name, case, fn)
+
+
+def check_wide_dense(torch, dev, gen, errs, d):
+    """#9-#12 at head dim d on the wide route: flash (GQA, q_offset,
+    windows, gemma3-4b's 4 x 2048 at W 1024 and causal), varlen (a padding
+    tail exact zeros), paged decode (GQA 2, 6, 7 and 1, a row of length 0
+    exact zeros, gemma3-4b's and gemma3-4b-mosa32's 2080 positions) and
+    packed prefill ([3]'s edges, gemma3-4b's chunk); each wrapper call one
+    count, two launches bitwise equal."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.serve import paged_attention as kp
+    for case, (B, Hq, Hkv, Tq, Tk, W) in {
+            f"GQA 8/4, T 300, W 100, d={d}": (2, 8, 4, 300, 300, 100),
+            f"Tq 77 < Tk 200, GQA 4/2, causal, d={d}": (1, 4, 2, 77, 200, 0),
+            f"Tq 1 < Tk 300, W 64, d={d}": (1, 2, 2, 1, 300, 64),
+            f"gemma3-4b 4 x 8/4 x 2048, W {WIDE_WINDOW}, d={d}": (
+                *WIDE_FLASH, WIDE_FLASH[3], WIDE_WINDOW),
+            f"gemma3-4b 4 x 8/4 x 2048, causal, d={d}": (
+                *WIDE_FLASH, WIDE_FLASH[3], 0)}.items():
+        q = torch.randn(B, Hq, Tq, d, device=dev, generator=gen)
+        k, v = (torch.randn(B, Hkv, Tk, d, device=dev, generator=gen)
+                for _ in range(2))
+
+        def flash(dt):
+            return counted_once(kf.LAUNCHES, lambda: kf.flash_attention_cuda(
+                q.to(dt), k.to(dt), v.to(dt), window=W),
+                f"flash_attention ({case})")
+
+        check_case(torch, flash, lambda dt: kf.flash_attention_ref(
+            *(x.to(dt).float() for x in (q, k, v)), window=W),
+            "flash_attention", case, errs)
+        check_twice(torch, "flash_attention", case, flash)
+    for case, (lens, total, Hq, Hkv, W) in {
+            f"W 8, GQA 8/2, pad tail, d={d}": ([40, 1, 70, 9], 128, 8, 2, 8),
+            f"one segment, causal, d={d}": ([200], 200, 2, 2, 0)}.items():
+        q, k, v, cu = varlen_inputs(torch, dev, gen, lens, total, Hq, Hkv, d)
+
+        def varlen(dt):
+            out = counted_once(
+                kf.LAUNCHES_VARLEN, lambda: kf.flash_attention_varlen_cuda(
+                    q.to(dt), k.to(dt), v.to(dt), cu, window=W),
+                f"flash_attention_varlen ({case})")
+            if (out[sum(lens):] != 0).any():
+                raise AssertionError(f"flash_attention_varlen ({case}): "
+                                     "padding tail not zero")
+            return out
+
+        check_case(torch, varlen, lambda dt: kf.flash_attention_varlen_ref(
+            *(x.to(dt).float() for x in (q, k, v)), cu, window=W),
+            "flash_attention_varlen", case, errs)
+        check_twice(torch, "flash_attention_varlen", case, varlen)
+    for case, kw in {
+            f"gemma3-4b decode 4 x 2080, GQA 8/4, d={d}": WIDE_DECODE,
+            f"gemma3-4b-mosa32 dense side 4 x 2080, 4/4 (R 1), d={d}": dict(
+                WIDE_DECODE, Hq=4, Hkv=4),
+            f"GQA 14/2 (R 7), a row of length 0, d={d}": dict(
+                B=3, Hq=14, Hkv=2, bs=16, nb=9, lengths=[0, 130, 1],
+                neg_tail=True),
+            f"GQA 12/2 (R 6) bs 8, d={d}": dict(
+                B=2, Hq=12, Hkv=2, bs=8, nb=20, lengths=[77, 160])}.items():
+        q, kpool, vpool, table, lengths = paged_inputs(
+            torch, d=d, dev=dev, gen=gen, **kw)
+        scale = d ** -0.5
+        empty = lengths == 0
+
+        def decode(dt):
+            out = counted_once(kp.LAUNCHES, lambda: kp.paged_attention_cuda(
+                q.to(dt), kpool.to(dt), vpool.to(dt), table, lengths, scale),
+                f"paged_attention_decode ({case})")
+            if (out[empty] != 0).any():
+                raise AssertionError(f"paged_attention_decode ({case}): a "
+                                     "row of length 0 is not zero")
+            return out
+
+        def plain(dt):
+            out = kp.paged_attention_ref(
+                *(t.to(dt).float() for t in (q, kpool, vpool)), table,
+                lengths, scale)
+            return torch.where(empty[:, None, None], 0.0, out)
+
+        check_case(torch, decode, plain, "paged_attention_decode", case, errs)
+        check_twice(torch, "paged_attention_decode", case, decode)
+    for case, kw in {
+            f"gemma3-4b chunk 4 segs GQA 8/4, d={d}": WIDE_PREFILL,
+            f"edges, GQA 8/2 bs 4, d={d}": dict(
+                Hq=8, Hkv=2, bs=4, nb=6, segs=PREFILL_EDGE_SEGS, total=24),
+            f"GQA 14/2 bs 16, shared prefix, d={d}": dict(
+                Hq=14, Hkv=2, bs=16, nb=40,
+                segs=[(0, 256, 9), (1, 255, 12), (2, 639, 1)], total=32,
+                share=10)}.items():
+        q, kpool, vpool, table, cu, rows, past = prefill_inputs(
+            torch, dev, gen, **dict(kw, d=d))
+        _, _, row_of_tok, pos = kp.packed_token_layout(cu, rows, past,
+                                                       q.shape[0])
+        scale = d ** -0.5
+
+        def prefill(dt):
+            out = counted_once(
+                kp.LAUNCHES_PREFILL, lambda: kp.paged_prefill_attention_cuda(
+                    q.to(dt), kpool.to(dt), vpool.to(dt), table, cu, rows,
+                    past, scale), f"paged_prefill_attention ({case})")
+            if (out[row_of_tok < 0] != 0).any():
+                raise AssertionError(f"paged_prefill_attention ({case}): "
+                                     "padding/inactive tokens not zero")
+            return out
+
+        check_case(torch, prefill, lambda dt: kp.paged_prefill_attention_ref(
+            *(t.to(dt).float() for t in (q, kpool, vpool)), table,
+            row_of_tok, pos, scale), "paged_prefill_attention", case, errs)
+        check_twice(torch, "paged_prefill_attention", case, prefill)
+
+
+def check_wide_kernels(torch, dev):
+    """[36]: all 12 kernels at head dims 160, 192 and 256 against their
+    plain versions, fp32 and bf16, under [3]'s tolerances.  Returns the
+    largest fp32 error of each kernel at d 256, by the names of the
+    ``kernels`` line (the routed backward at d 256 is the split pair)."""
+    gen = torch.Generator(device=dev).manual_seed(36)
+    for d in WIDE_DIMS:
+        log(f"  -- head dim {d} (the wide route, padded to 256)")
+        e = {}
+        check_wide_mosa(torch, dev, gen, e, d)
+        check_wide_block(torch, dev, gen, e, d)
+        check_wide_dense(torch, dev, gen, e, d)
+    def m(label):
+        return e[f"{label}@max"]
+
+    out = {name: m(name) for name in (
+        "mosa_attention", "mosa_block_attention", "flash_attention",
+        "flash_attention_varlen", "paged_attention_decode",
+        "paged_prefill_attention")}
+    for stem in ("mosa_attention", "mosa_block_attention"):
+        split = {p: m(f"{stem}_bwd[split].{p}") for p in ("dq", "dk", "dv")}
+        out[f"{stem}_fwd_res"] = max(m(f"{stem}_fwd_res.o_pre"),
+                                     m(f"{stem}_fwd_res.lse"))
+        out[f"{stem}_bwd"] = max(split.values())     # routed: the split pair
+        out[f"{stem}_bwd_dq"] = split["dq"]
+        out[f"{stem}_bwd_dkv"] = max(split["dk"], split["dv"])
+    return out
+
+
+def time_wide_kernels(torch, dev):
+    """[36]'s times at d 256 (fp32, L2 flushed before every launch, as
+    [4]): each kernel, its plain version and SDPA at the same shape (with
+    the boolean mask of this run's pairs; the backward's yardstick is
+    SDPA's backward, which computes dq, dk and dv), and the bound from
+    bytes (each input read once, each output written once) and operations
+    (4*d per visible pair and head forward, 6*d / 8*d / 10*d for dq, dk+dv,
+    all three).  Shapes: #1-#4 at gemma3-4b-mosa32's (4, 32, 64, 256), #2-
+    #4 also at S 128; #5-#8 at 4 x 32 rows of 4 blocks of 16; #9 at (4, 8,
+    2048, 256) with 4 KV heads at W 1024 and causal; #10 over [4]'s eight
+    seeded prompts, 8 heads (4 KV), W 1024; #11 at 4 rows of 2080
+    positions, GQA 8/4, pages of 16; #12 at [11]'s chunk of 4 segments,
+    GQA 8/4."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kb
+    from repro_torch.kernels import mosa_block as kbl
+    gen = torch.Generator(device=dev).manual_seed(37)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    d, out = 256, {}
+
+    def put(name, shape, call, plain, library, nbytes, flops):
+        out[name] = dict(shape=shape, ms=time_ms(torch, call, flush=flush),
+                         plain_ms=time_ms(torch, plain, flush=flush),
+                         library_ms=time_ms(torch, library, flush=flush),
+                         bytes=nbytes, flops=flops)
+
+    def sdpa_pair(q, k, v, mask, g):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return (lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask),
+                lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+
+    B, H = WIDE_MOSA["B"], WIDE_MOSA["H"]
+    for tag, S in (("", 64), ("[S 128]", 128)):
+        q, k, v, idx, r, _ = mosa_inputs(torch, B, H, S, d, 2048, dev, gen)
+        mask = km.pair_mask(idx, idx, idx >= 0, None)
+        pairs, shape = int(mask.sum()), f"({B},{H},{S},{d})"
+        vec, row = B * H * S * d * 4, B * H * S * 4
+        o_pre, lse = km.mosa_attention_fwd_res_cuda(q, k, v, idx)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+        gt = (g * r[..., None]).contiguous()
+        args = (q, k, v, idx, gt, lse, (gt * o_pre).sum(-1).contiguous())
+        fwd, bwd = sdpa_pair(q, k, v, mask, g)
+        if not tag:
+            put("mosa_attention", shape,
+                lambda: km.mosa_attention_cuda(q, k, v, idx, r),
+                lambda: km.mosa_attention_ref(q, k, v, idx, r), fwd,
+                4 * vec + 2 * row, 4 * pairs * d)
+        put(f"mosa_attention_fwd_res{tag}", shape,
+            lambda: km.mosa_attention_fwd_res_cuda(q, k, v, idx),
+            lambda: km.mosa_attention_fwd_res_ref(q, k, v, idx), fwd,
+            4 * vec + 2 * row, 4 * pairs * d)
+        plain = (lambda: kb.mosa_attention_bwd_ref(*args))
+        put(f"mosa_attention_bwd{tag}", shape,
+            lambda: kb.mosa_attention_bwd_cuda(*args), plain, bwd,
+            7 * vec + 3 * row, 10 * pairs * d)
+        put(f"mosa_attention_bwd_dq{tag}", shape,
+            lambda: kb.mosa_attention_bwd_dq_cuda(*args), plain, bwd,
+            5 * vec + 3 * row, 6 * pairs * d)
+        put(f"mosa_attention_bwd_dkv{tag}", shape,
+            lambda: kb.mosa_attention_bwd_dkv_cuda(*args), plain, bwd,
+            6 * vec + 3 * row, 8 * pairs * d)
+
+    kw = dict(WIDE_BLOCK, d=d)
+    q, k, v, bidx, rblk, _ = block_inputs(torch, dev=dev, gen=gen, **kw)
+    NB, bs, T = kw["NB"], kw["bs"], kw["T"]
+    pos, ok = kbl.expand_blocks(bidx, bs, T)
+    mask = (pos[..., :, None] >= pos[..., None, :]) & ok[..., None, :]
+    S = NB * bs
+    pairs, shape = int(mask.sum()), f"({B},{H}) NB {NB} bs {bs} d {d}"
+    vec, row, blk = B * H * S * d * 4, B * H * S * 4, B * H * NB * 4
+    o_pre, lse = kbl.mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs, T)
+    g = torch.randn(q.shape, device=dev, generator=gen)
+    gt = torch.where(ok[..., None], g, 0.0).contiguous()
+    args = (q, k, v, bidx, gt, lse, (gt * o_pre).sum(-1).contiguous(), bs, T)
+    fwd, bwd = sdpa_pair(q, k, v, mask, g)
+    plain = (lambda: kbl.mosa_block_attention_bwd_ref(*args))
+    put("mosa_block_attention", shape,
+        lambda: kbl.mosa_block_attention_cuda(q, k, v, bidx, rblk, bs, T),
+        lambda: kbl.mosa_block_attention_ref(q, k, v, bidx, rblk, bs, T),
+        fwd, 4 * vec + 2 * blk, 4 * pairs * d)
+    put("mosa_block_attention_fwd_res", shape,
+        lambda: kbl.mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs, T),
+        lambda: kbl.mosa_block_attention_fwd_res_ref(q, k, v, bidx, bs, T),
+        fwd, 4 * vec + row + blk, 4 * pairs * d)
+    put("mosa_block_attention_bwd", shape,
+        lambda: kbl.mosa_block_attention_bwd_cuda(*args), plain, bwd,
+        7 * vec + 2 * row + blk, 10 * pairs * d)
+    put("mosa_block_attention_bwd_dq", shape,
+        lambda: kbl.mosa_block_attention_bwd_dq_cuda(*args), plain, bwd,
+        5 * vec + 2 * row + blk, 6 * pairs * d)
+    put("mosa_block_attention_bwd_dkv", shape,
+        lambda: kbl.mosa_block_attention_bwd_dkv_cuda(*args), plain, bwd,
+        6 * vec + 2 * row + blk, 8 * pairs * d)
+
+    B, Hq, Hkv, T = WIDE_FLASH
+    q = torch.randn(B, Hq, T, d, device=dev, generator=gen)
+    k, v = (torch.randn(B, Hkv, T, d, device=dev, generator=gen)
+            for _ in range(2))
+    ke, ve = (x.repeat_interleave(Hq // Hkv, 1) for x in (k, v))
+    p_ = torch.arange(T, device=dev)
+    for name, W in (("flash_attention", WIDE_WINDOW),
+                    ("flash_attention[causal]", 0)):
+        mask = flash_pairs(p_, p_, W)
+        put(name, f"({B},{Hq}/{Hkv},{T},{d}) W {W}",
+            lambda: kf.flash_attention_cuda(q, k, v, window=W),
+            lambda: kf.flash_attention_ref(q, k, v, window=W),
+            lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                   attn_mask=mask),
+            2 * B * (Hq + Hkv) * T * d * 4, 4 * d * B * Hq * int(mask.sum()))
+    lens = varlen_slice_lengths()
+    total = sum(lens)
+    q, k, v, cu = varlen_inputs(torch, dev, gen, lens, total, Hq, Hkv, d)
+    seg, _ = kf.segments_from_cu_seqlens(cu, total)
+    p_ = torch.arange(total, device=dev)
+    mask = flash_pairs(p_, p_, WIDE_WINDOW) & (seg[:, None] == seg[None, :])
+    qh = q.transpose(0, 1)[None].contiguous()
+    kh, vh = (x.repeat_interleave(Hq // Hkv, 1).transpose(0, 1)[None]
+              .contiguous() for x in (k, v))
+    put("flash_attention_varlen", f"{total} tokens {Hq}/{Hkv} d {d} W "
+        f"{WIDE_WINDOW}",
+        lambda: kf.flash_attention_varlen_cuda(q, k, v, cu,
+                                               window=WIDE_WINDOW),
+        lambda: kf.flash_attention_varlen_ref(q, k, v, cu,
+                                              window=WIDE_WINDOW),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+        2 * total * (Hq + Hkv) * d * 4 + cu.numel() * 4,
+        4 * d * Hq * int(mask.sum()))
+
+    dk = WIDE_DECODE
+    out["paged_attention_decode"], _ = time_decode_kernel(
+        torch, dev, gen, flush, dk["lengths"], d=d, Hq=dk["Hq"],
+        Hkv=dk["Hkv"], nb=dk["nb"])
+    out["paged_attention_decode"]["shape"] = (
+        f"{len(dk['lengths'])} rows x {dk['lengths'][0]}, {dk['Hq']}/"
+        f"{dk['Hkv']} d {d} bs {dk['bs']}")
+    out["paged_prefill_attention"], _ = time_prefill_kernel(
+        torch, dev, gen, flush, PREFILL_SLICE, d=d, Hq=WIDE_PREFILL["Hq"],
+        Hkv=WIDE_PREFILL["Hkv"])
+    out["paged_prefill_attention"]["shape"] = (
+        f"[11]'s chunk, 4 segs, {WIDE_PREFILL['Hq']}/{WIDE_PREFILL['Hkv']} "
+        f"d {d}")
+    for name, t in out.items():
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["flops"] / FP32_FLOP_PER_S * 1e3
+        t["bound_ms"] = max(t_bytes, t_ops)
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {name:30s} {t['shape']:34s} kernel {t['ms']:.4f} ms  plain "
+            f"{t['plain_ms']:.4f} ms  SDPA {t['library_ms']:.4f} ms  bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+# ------------------------------ the public architectures ([37], [38])
+# Served one after another in bf16 (the configs' own dtype) at full width,
+# random weights from seed 0: batch 4 x a 2048-token prompt + 32 greedy
+# tokens on paged KV (pages of 16).
+ARCH_SERVE = ("qwen2-1.5b", "yi-9b", "musicgen-large", "gemma3-4b", "yi-34b")
+ARCH_B, ARCH_P, ARCH_G = 4, 2048, 32
+FREE_GIB = 4.0              # the card memory a run must leave free
+# bf16 prefill against fp32 on the same weights (2 layers, card), each as a
+# relative Frobenius error ||x_bf16 - x_fp32|| / ||x_fp32||: of every
+# layer's mixer output (the h its block adds to the residual; the largest
+# of the layers), and of the last position's logits over the tokens that
+# are not in the prompt, centred on their mean (a tied table gives a
+# prompt token a self-logit of |e|^2, which says nothing of the mixers).
+# The control: the fp32 run with layer 0's mixer output dropped.  The
+# limits lie between the largest sound reading and the smallest control
+# on the H100 (PERF.md §6, PR 27): mixers 0.0061 against layer 1's 0.021
+# (gemma3-4b), logits 0.0050 against 0.094 (qwen2, yi, musicgen; gemma's
+# embedding scale leaves its logits blind to one mixer: 0.0014).
+BF16_MIXER_TOL = 0.012
+BF16_LOGIT_TOL = 0.02
+# the card-vs-CPU check (fp32, 2 layers; ``cross_check`` generates 8): a
+# window ring of min(window, max_len) slots must be whole pages of 16, so
+# max_len = CROSS_P + CROSS_G is a multiple of 16
+CROSS_P, CROSS_G = 120, 8
+
+
+def arch_config(name, **over):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(name, preset="full")
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def gemma_mosa_config():
+    """``gemma3-4b-mosa32``: gemma3-4b with every attention layer a MoSA
+    hybrid of 32 sparse heads (k = T / 32) and 4 dense heads, all of d 256,
+    on the kernel path."""
+    cfg = arch_config("gemma3-4b").with_mosa(sparsity=32, n_mosa_heads=32)
+    return dataclasses.replace(cfg, mosa=dataclasses.replace(cfg.mosa,
+                                                             impl="kernel"))
+
+
+def cut_depth(cfg, n, start=0):
+    """``cfg`` with layers [start, start + n) of its pattern."""
+    pat = cfg.resolved_pattern()[start:start + n]
+    return dataclasses.replace(cfg, n_layers=n,
+                               pattern=pat if cfg.pattern else ())
+
+
+def two_layer_start(cfg):
+    """The first layer of a 2-layer cut that holds both mixer kinds of a
+    mixed pattern (gemma3-4b: a local and a global layer), else 0."""
+    pat = cfg.resolved_pattern()
+    i = next((i for i, b in enumerate(pat) if b != pat[0]), 1)
+    return i - 1
+
+
+def fp32_cfg(cfg, vocab=None):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32",
+                               vocab=vocab or cfg.vocab)
+
+
+def want_arch_launches(cfg, G):
+    """One packed-free generate: MoSA layers launch #1 once (prefill) and
+    #11 per decode step on their dense heads; global attention layers (a
+    paged dense cache) #11 per decode step; window layers (paged rings)
+    and every prefill of a dense cache run plain PyTorch."""
+    pat = cfg.resolved_pattern()
+    n_mosa = sum(b.mixer == "mosa" for b in pat)
+    n_dense = sum(b.mixer == "attn" for b in pat) + n_mosa
+    counts = {"paged_attention_decode": n_dense * (G - 1)}
+    if n_mosa:
+        counts["mosa_attention"] = n_mosa
+    return want_launches(**counts)
+
+
+def free_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def arch_generate(torch, cfg, B=ARCH_B, P=ARCH_P, G=ARCH_G, label=""):
+    """``Server.generate`` of ``cfg`` on paged KV: a warm-up generate of one
+    token, then the counted generate of G tokens with its decode steps
+    timed on their own (prefill ms: the rest of that call, the prefill and
+    the first token's sampling).  The launches over the counted call must
+    be exactly ``want_arch_launches``.  Returns the server, the prompts and
+    the results."""
+    from repro_torch.core.kv_cache import cache_nbytes
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    t_build = time.perf_counter()
+    server = Server(cfg, batch=B, max_len=P + G,
+                    paged=PagedConfig(block_size=16), seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    n_params = sum(p.numel() for p in server.model.parameters())
+    prompts = torch.randint(2, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+
+    def timed_generate(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, caches = server.generate(prompts, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, toks, caches
+
+    timed_generate(1)                                   # warm-up
+    decode_many = server.model.decode_many
+    span = {}
+
+    def timed_decode_many(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_many(*args)
+        torch.cuda.synchronize()
+        span["decode_s"] = time.perf_counter() - t0
+        return out
+
+    server.model.decode_many = timed_decode_many
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen_s, toks, caches = timed_generate(G)
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del server.model.decode_many
+    want = want_arch_launches(cfg, G)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launch counts {launches} != "
+                             f"{want}")
+    if toks.shape != (B, G) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name}: bad tokens {tuple(toks.shape)}")
+    total = torch.cuda.mem_get_info()[1]
+    res = dict(depth=cfg.n_layers, params=n_params, build_s=build_s,
+               prefill_ms=(gen_s - span["decode_s"]) * 1e3, generate_s=gen_s,
+               decode_s=span["decode_s"],
+               decode_tok_s=B * (G - 1) / span["decode_s"],
+               peak_gib=peak / 2 ** 30, free_gib=(total - peak) / 2 ** 30,
+               cache_bytes=cache_nbytes(caches), launches={
+                   k: v for k, v in launches.items() if v})
+    log(f"  {label or cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B"
+        f" parameters ({cfg.param_dtype}, built in {build_s:.1f} s); batch "
+        f"{B} x prompt {P} + {G} tokens; prefill {res['prefill_ms']:.1f} ms, "
+        f"decode {res['decode_tok_s']:.1f} tok/s; peak "
+        f"{res['peak_gib']:.2f} GiB ({res['free_gib']:.2f} GiB of the card "
+        f"free); caches {res['cache_bytes'] / 2 ** 30:.3f} GiB; launches "
+        f"{res['launches']}")
+    del caches
+    return server, prompts, res
+
+
+def arch_depth(torch, cfg):
+    """The deepest depth <= n_layers whose predicted peak leaves FREE_GIB
+    of the card free: the peak of a 2-layer run of the same generate, plus
+    one layer's weights and caches for each layer more."""
+    from repro_torch.nn.transformer import TransformerLM
+    total = torch.cuda.mem_get_info()[1]
+    two = cut_depth(cfg, 2)
+    meta = TransformerLM(two, device="meta")
+    size = cfg.pdtype.itemsize
+    layer = sum(p.numel() for p in meta.layers[0].parameters()) * size
+    a = cfg.attention       # a layer's paged K and V at most
+    cache = 2 * ARCH_B * (ARCH_P + ARCH_G) * a.n_kv_heads * a.d_head * size
+    full = (sum(p.numel() for p in meta.parameters())
+            + (cfg.n_layers - 2) * layer // size) * size
+    if full + cfg.n_layers * cache + 16 * 2 ** 30 < total - FREE_GIB * 2 ** 30:
+        return cfg.n_layers, None       # far from the limit: no probe
+    server, _, probe = arch_generate(torch, two, G=2, label=f"{cfg.name} "
+                                     "(2-layer probe)")
+    del server
+    free_cuda(torch)
+    room = total - FREE_GIB * 2 ** 30 - probe["peak_gib"] * 2 ** 30
+    return min(cfg.n_layers, 2 + int(room // (layer + cache))), probe
+
+
+def prefill_readout(torch, srv, prompt, drop=None):
+    """``srv``'s prefill of ``prompt``: the last position's logits and each
+    layer's mixer output, in fp32; ``drop``: a layer whose mixer output is
+    replaced by zeros."""
+    mixed = []
+    for i, layer in enumerate(srv.model.layers):
+        def read(*a, _prefill=layer.mixer.prefill, _i=i, **k):
+            h, cache = _prefill(*a, **k)
+            if _i == drop:
+                h = torch.zeros_like(h)
+            mixed.append(h.float())
+            return h, cache
+        layer.mixer.prefill = read
+    with torch.inference_mode():
+        lg, _ = srv.model.prefill(prompt, srv.new_cache())
+    return lg[0, -1].float(), mixed
+
+
+@contextlib.contextmanager
+def replayed_selections(torch, record=None, replay=None):
+    """MoSA's top-k selections (``core.mosa.select_topk``, in call order):
+    appended to ``record``, or taken from ``replay`` (the router scores of
+    this run gathered at the replayed indices), with the share of heads
+    whose own selection differs appended to ``replay_flips``."""
+    from repro_torch.core import mosa
+    own = mosa.select_topk
+    calls = iter(replay or ())
+    flips = []
+
+    def select(scores, k, force_first=True):
+        r, idx = own(scores, k, force_first)
+        if record is not None:
+            record.append(idx)
+        if replay is not None:
+            want = next(calls)
+            flips.append((want != idx).any(-1).float().mean().item())
+            r, idx = torch.gather(scores, -1, want), want
+        return r, idx
+
+    mosa.select_topk = select
+    try:
+        yield flips
+    finally:
+        mosa.select_topk = own
+
+
+def bf16_vs_fp32(torch, state, cfg, prompts, label):
+    """The bf16 weights ``state`` (a 2-layer cut of the full run's) in bf16
+    and in fp32 on the card, one 256-token prompt: the relative error of
+    the mixer outputs and of the logits (``BF16_MIXER_TOL``), with the
+    control's readings beside them.  The fp32 run takes the bf16 run's
+    MoSA selections, so that a near-tie that bf16's rounding of the router
+    input flips (ROADMAP C, "Top-k ties") does not read as error; the
+    share of heads whose fp32 selection differs is reported."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    prompt = prompts[:1, :256].cuda()
+    runs, picks = {}, []
+    for name, c, drop in (("bf16", cfg, None), ("fp32", fp32_cfg(cfg), None),
+                          ("control", fp32_cfg(cfg), 0)):
+        srv = Server(c, batch=1, max_len=256, params=state,
+                     paged=PagedConfig(block_size=16))
+        with replayed_selections(
+                torch, record=picks if name == "bf16" else None,
+                replay=picks if name == "fp32" else None) as flips:
+            runs[name] = prefill_readout(torch, srv, prompt, drop)
+        if name == "fp32":
+            flipped = max(flips, default=0.0)
+        del srv
+    l32, h32 = runs["fp32"]
+    keep = torch.ones_like(l32, dtype=torch.bool)
+    keep[prompt[0]] = False
+    mean = l32[keep].mean()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # the control's mixer reading is layer 1's: layer 0's reads 1 exactly
+    read = {name: dict(mixer=max(rel(a, b) for a, b in list(zip(h, h32))[first:]),
+                       logits=rel(l[keep] - mean, l32[keep] - mean))
+            for name, first in (("bf16", 0), ("control", 1))
+            for l, h in (runs[name],)}
+    l16 = runs["bf16"][0]
+    log(f"  {label}: bf16 vs fp32 prefill (2 layers, card), relative error "
+        f"of the mixer outputs {read['bf16']['mixer']:.5f} (tol "
+        f"{BF16_MIXER_TOL}), of the logits {read['bf16']['logits']:.5f} "
+        f"(tol {BF16_LOGIT_TOL}); control (layer 0's mixer dropped): layer "
+        f"1's mixer {read['control']['mixer']:.5f}, the logits "
+        f"{read['control']['logits']:.5f}; top-1 "
+        f"{'equal' if l16.argmax() == l32.argmax() else 'differs'}"
+        + (f"; MoSA heads whose fp32 selection differs (replayed): "
+           f"{flipped:.4f} at most" if picks else ""))
+    if not (torch.isfinite(l16).all()
+            and read["bf16"]["mixer"] <= BF16_MIXER_TOL
+            and read["bf16"]["logits"] <= BF16_LOGIT_TOL):
+        raise AssertionError(f"{label}: bf16 off fp32: {read['bf16']}")
+    return dict(read["bf16"], control=read["control"],
+                **({"selection_flips": flipped} if picks else {}))
+
+
+def two_layer_state(server, cfg):
+    """The 2-layer cut's weights of a served model, on the host, layer
+    indices renumbered from 0."""
+    start = two_layer_start(cfg)
+    out = {}
+    for k, v in server.model.state_dict().items():
+        parts = k.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1]) - start
+            if not 0 <= i < 2:
+                continue
+            k = ".".join(["layers", str(i)] + parts[2:])
+        out[k] = v.detach().cpu()
+    return out
+
+
+def arch_cross_check(torch, cfg, label):
+    """The card against the CPU in fp32 at full width and 2 layers (a cut
+    holding both mixer kinds of a mixed pattern), the vocabulary cut to
+    512 where its tables would pass 2 GiB in fp32: ``cross_check``'s
+    prefill and decode logits (1e-3) and identical greedy tokens, batch 1,
+    prompt ``CROSS_P``, ``CROSS_G`` tokens."""
+    from repro_torch.launch.serve import Server
+    tables = cfg.vocab * cfg.d_model * 4 * (1 if cfg.tie_embeddings else 2)
+    vocab = 512 if tables > 2 * 2 ** 30 else cfg.vocab
+    c32 = fp32_cfg(cut_depth(cfg, 2, two_layer_start(cfg)), vocab)
+    server = Server(c32, batch=1, max_len=CROSS_P + CROSS_G, seed=0)
+    prompts = torch.randint(2, vocab, (1, CROSS_P),
+                            generator=torch.Generator().manual_seed(5))
+    log(f"  {label}: fp32, 2 layers ({[b.mixer for b in c32.pattern] or 'uniform'})"
+        f", vocab {vocab}")
+    err = cross_check(torch, server, c32, prompts, P=CROSS_P)
+    del server
+    free_cuda(torch)
+    return dict(vocab=vocab, logits_err=err)
+
+
+def arch_slice(torch):
+    """[37]: the five architectures one after another."""
+    out = {}
+    for name in ARCH_SERVE:
+        cfg = arch_config(name)
+        t0 = time.perf_counter()
+        depth, probe = arch_depth(torch, cfg)
+        run = cut_depth(cfg, depth) if depth < cfg.n_layers else cfg
+        server, prompts, res = arch_generate(torch, run)
+        if depth < cfg.n_layers:
+            res["reduced"] = (f"n_layers {cfg.n_layers} -> {depth}: the "
+                              f"weights and the peak leave {FREE_GIB} GiB "
+                              "of the card free")
+            res["probe"] = probe
+            log(f"  reduced: {res['reduced']}")
+        if res["free_gib"] < FREE_GIB:
+            raise AssertionError(f"{name}: {res['free_gib']:.2f} GiB free")
+        state = two_layer_state(server, run)
+        del server
+        free_cuda(torch)
+        res["bf16_vs_fp32"] = bf16_vs_fp32(
+            torch, state, cut_depth(run, 2, two_layer_start(run)), prompts,
+            name)
+        del state
+        res["cross_check"] = arch_cross_check(torch, cfg, name)
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        free_cuda(torch)
+    return out
+
+
+def gemma_window_contiguous(torch, B=ARCH_B, P=ARCH_P, G=8):
+    """[38](b): gemma3-4b on contiguous caches with every attention layer
+    on the kernel route: its window layers' prefill is the flash kernel #9
+    at d 256 (once per window layer in the generate); the global layers'
+    prefill and every decode step are plain PyTorch."""
+    from repro_torch.launch.serve import Server
+    cfg = arch_config("gemma3-4b")
+    server = Server(cfg, batch=B, max_len=P + G, seed=0)
+    for layer in server.model.layers:
+        layer.mixer.impl = "kernel"
+    prompts = torch.randint(2, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+    server.generate(prompts, 1)                          # warm-up
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = server.generate(prompts, G)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    n_local = sum(b.mixer == "attn_local" for b in cfg.resolved_pattern())
+    want = want_launches(flash_attention=n_local)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError("bad tokens")
+    log(f"  contiguous rings, window layers on #9: generate of {G} tokens "
+        f"{gen_s:.3f} s; launches {n_local} of #9, 0 of the others")
+    del server
+    free_cuda(torch)
+    return dict(generate_s=gen_s, launches={"flash_attention": n_local})
+
+
+def gemma_sched_slice(torch):
+    """[38](a): gemma3-4b through the Scheduler on paged KV at full width:
+    batch 4, max_len 1152, pages of 16 (the dense pool every row's whole
+    length, the window pool every row's whole ring), 256-token chunks of up
+    to 4 segments, prefix cache on; 8 seeded requests of 100-1000 tokens
+    with 8-16 new each.  Exact checks: every request its max_new, both
+    pools back (the dense one but the trie's), packed prefill #12 = global
+    layers x prefill chunks, paged decode #11 = global layers x decode
+    steps, every other kernel 0 (the window rings are plain PyTorch)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.launch.serve import Server
+    from repro_torch.serve.paged_kv import PagedConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = arch_config("gemma3-4b")
+    B, max_len, bs = 4, 1152, 16
+    window = cfg.attention.window
+    server = Server(cfg, batch=B, max_len=max_len, seed=0, paged=PagedConfig(
+        block_size=bs, num_blocks=B * max_len // bs,
+        num_window_blocks=B * window // bs))
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(2, cfg.vocab, int(rng.integers(100, 1001))),
+             int(rng.integers(8, 17))) for _ in range(8)]
+    obs.set_enabled(True)
+    obs.registry().reset()
+    sched = Scheduler(server, prefix_cache=True, chunk=8, chunk_tokens=256,
+                      max_prefill_segs=4)
+    rids = [sched.submit(p, m) for p, m in reqs]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    st = dict(sched.stats)
+    steps = int(obs.registry().snapshot()["counters"]["server.decode_steps"])
+    for rid, (p, m) in zip(rids, reqs):
+        if len(out[rid]) != m:
+            raise AssertionError(f"request {rid}: {len(out[rid])} tokens, "
+                                 f"want {m}")
+    pool, wpool = sched.dense_pool, sched.window_pool
+    if pool.free_blocks + sched.prefix.n_nodes != pool.num_blocks or \
+            wpool.free_blocks != wpool.num_blocks:
+        raise AssertionError("blocks leaked")
+    n_global = sum(b.mixer == "attn" for b in cfg.resolved_pattern())
+    want = want_launches(paged_attention_decode=n_global * steps,
+                         paged_prefill_attention=n_global
+                         * st["prefill_chunks"])
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    gen = sum(m for _, m in reqs)
+    log(f"  {len(reqs)} requests ({sum(len(p) for p, _ in reqs)} prompt "
+        f"tokens, {gen} generated) in {wall:.2f} s; {st['prefill_chunks']} "
+        f"prefill chunks, {steps} decode steps; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del server, sched
+    free_cuda(torch)
+    return dict(wall_s=wall, gen_tok_s=gen / wall, decode_steps=steps,
+                stats=st, launches={k: v for k, v in launches.items() if v})
+
+
+def gemma_slice(torch):
+    """[38]: gemma3-4b's Scheduler, its contiguous window path, and
+    gemma3-4b-mosa32 through generate (#1 at d 256 in prefill, #11 at d
+    256 on its 4 dense heads), with that model's card-vs-CPU check."""
+    out = {}
+    log("  (a) the Scheduler: #12 and #11 at d 256, window pool")
+    out["sched"] = gemma_sched_slice(torch)
+    log("  (b) contiguous window rings: #9 at d 256")
+    out["contiguous"] = gemma_window_contiguous(torch)
+    log("  (c) gemma3-4b-mosa32 through generate")
+    cfg = gemma_mosa_config()
+    server, prompts, res = arch_generate(torch, cfg)
+    state = two_layer_state(server, cfg)
+    del server
+    free_cuda(torch)
+    res["bf16_vs_fp32"] = bf16_vs_fp32(torch, state, cut_depth(cfg, 2),
+                                       prompts, cfg.name)
+    del state
+    res["cross_check"] = arch_cross_check(torch, cfg, cfg.name)
+    out["mosa32"] = res
+    return out
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         sys.exit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; run it "
@@ -4054,6 +5024,24 @@ def main():
     log("[35] tensor-parallel serving: layer 0 as 4 rank-local shards")
     dist_res["serve_shards"] = tp_serve_shards_slice(torch)
     torch.distributed.destroy_process_group()
+    free_cuda(torch)
+
+    t36 = time.perf_counter()
+    log("[36] wide-head kernels: all 12 at d 160, 192 and 256 against their "
+        "plain versions (fp32, bf16), then timed at d 256 (fp32, L2 flushed)")
+    wide_errs = check_wide_kernels(torch, dev)
+    wide = time_wide_kernels(torch, dev)
+    log(f"  [36] {time.perf_counter() - t36:.1f} s")
+    t37 = time.perf_counter()
+    log(f"[37] main path: {', '.join(ARCH_SERVE)} served at full width in "
+        f"bf16 (batch {ARCH_B} x {ARCH_P} + {ARCH_G}, paged KV)")
+    archs = arch_slice(torch)
+    log(f"  [37] {time.perf_counter() - t37:.1f} s")
+    t38 = time.perf_counter()
+    log("[38] main path: gemma3-4b's Scheduler, contiguous window path and "
+        "gemma3-4b-mosa32 at full width")
+    gemma = gemma_slice(torch)
+    log(f"  [38] {time.perf_counter() - t38:.1f} s")
 
     sweep["kernel_cases"] = {
         name: {**times[name], "max_abs_err": errs[name]}
@@ -4118,6 +5106,12 @@ def main():
         "34": dist_res["mesh_sched"]["mesh"]["launches"][name],
         "35": dist_res["serve_shards"]["launches_total"].get(name, 0)}
         for name in sources}
+    # the d 256 routes' launches on the main paths of [37] (gemma3-4b) and
+    # [38] (its Scheduler, contiguous window path and gemma3-4b-mosa32)
+    launches_d256 = {name: sum(
+        run["launches"].get(name, 0) for run in (
+            archs["gemma3-4b"], gemma["sched"], gemma["contiguous"],
+            gemma["mosa32"])) for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     launches_mesh=launches_mesh[name],
@@ -4127,7 +5121,13 @@ def main():
                     bound_by=times[name]["bound_by"],
                     library_ms=times[name]["library_ms"],
                     **{k: times[name][k] for k in ("stream_ms", "device_ms")
-                       if k in times[name]})
+                       if k in times[name]},
+                    launches_d256=launches_d256[name],
+                    d256=dict(source="src/repro_torch/csrc/wide_attention.cu",
+                              max_abs_err=wide_errs[name], **{
+                        k: wide[name][k] for k in (
+                            "shape", "ms", "plain_ms", "library_ms",
+                            "bound_ms", "bound_by")}))
                for name, (src, rep) in sources.items()]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serve": {
@@ -4142,6 +5142,9 @@ def main():
     print(json.dumps({"pool": pool}))
     print(json.dumps({"remat": remat}))
     print(json.dumps({"dist": dist_res}))
+    print(json.dumps({"wide": wide}))
+    print(json.dumps({"archs": archs}))
+    print(json.dumps({"gemma": gemma}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

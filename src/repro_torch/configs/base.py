@@ -159,6 +159,35 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
 
+    def with_mosa(self, sparsity: int = 32, n_mosa_heads: int | None = None,
+                  local_window: int = 0, k_fixed: int = 0,
+                  selection_granularity: str = "token",
+                  sel_block_size: int = 16) -> "ModelConfig":
+        """A MoSA-hybrid variant of this config (the paper's technique), as
+        the JAX package's ``with_mosa``: every softmax-attention mixer
+        (``attn``, ``attn_local``) becomes a ``mosa`` hybrid mixer (4 dense
+        + N sparse heads of the config's d_head); attention-free mixers are
+        untouched; a config with no attention raises.  The default N is the
+        FLOP-matched ``max(1, n_heads - 4) * sparsity // 2``, and the name
+        gains ``-mosa<sparsity>``."""
+        pat = self.resolved_pattern()
+        kinds = {b.mixer for b in pat}
+        if not (kinds & {"attn", "attn_local"}):
+            raise ValueError(f"{self.name}: MoSA inapplicable (attention-free)")
+        if n_mosa_heads is None:
+            n_mosa_heads = max(1, self.attention.n_heads - 4) * sparsity // 2
+        mosa = MoSAConfig(n_mosa_heads=n_mosa_heads, sparsity=sparsity,
+                          n_dense_heads=4, d_head=self.attention.d_head,
+                          local_window=local_window, k_fixed=k_fixed,
+                          selection_granularity=selection_granularity,
+                          sel_block_size=sel_block_size)
+        new_pat = tuple(
+            dataclasses.replace(b, mixer="mosa")
+            if b.mixer in ("attn", "attn_local") else b for b in pat)
+        return dataclasses.replace(
+            self, name=self.name + f"-mosa{sparsity}", pattern=new_pat,
+            mosa=mosa)
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -185,6 +214,7 @@ def get_config(name: str, preset: str = "full", **kw) -> ModelConfig:
 
 
 def _load_all():
-    # Importing a config module registers it.  Only the paper's own model
-    # family is ported so far.
-    from repro_torch.configs import mosa_paper  # noqa: F401
+    # Importing a config module registers it.  The ported ones: the paper's
+    # own model family and the dense GQA architectures (ROADMAP A.9a, A.9b).
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_4b, mosa_paper, musicgen_large, qwen2_1_5b, yi_34b, yi_9b)

@@ -42,6 +42,20 @@ def scatter_kept(dst, i0, i1, vals, keep):
     dst[t0, t1] = torch.where(mask, vals.to(dst.dtype), fill)
 
 
+def cache_nbytes(tree) -> int:
+    """Total bytes of every tensor in a cache structure (a layer's cache, a
+    model's list of them, or any nesting of lists, tuples, NamedTuples and
+    dicts): the serving-side KV-memory metric, as the JAX package's
+    ``cache_nbytes`` sums a cache pytree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(cache_nbytes(x) for x in tree)
+    return 0
+
+
 class DenseKVCache(NamedTuple):
     k: torch.Tensor        # (B, S, Hkv, d)
     v: torch.Tensor        # (B, S, Hkv, d)

@@ -35,8 +35,12 @@ NVCC_FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LIB_NAME = "librepro_torch_kernels.so"
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the widest head dim any kernel takes
-MAX_HEAD_DIM = 128
+# the widest head dim any kernel takes, and the widest that the narrow
+# kernels take: a wider head runs zero-padded to MAX_HEAD_DIM on the wide
+# route (csrc/wide_attention.cu), one C entry ``<narrow entry>_wide`` a
+# family with the narrow entry's arguments
+MAX_HEAD_DIM = 256
+NARROW_HEAD_DIM = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +67,14 @@ SIGNATURES = {
     "repro_paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     "repro_paged_prefill_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
 }
+WIDE_ENTRIES = (
+    "repro_mosa_attention", "repro_mosa_attention_fwd_res",
+    "repro_mosa_attention_bwd_dq", "repro_mosa_attention_bwd_dkv",
+    "repro_mosa_block_attention", "repro_mosa_block_attention_fwd_res",
+    "repro_mosa_block_attention_bwd_dq", "repro_mosa_block_attention_bwd_dkv",
+    "repro_flash_attention", "repro_flash_attention_varlen",
+    "repro_paged_attention_decode", "repro_paged_prefill_attention")
+SIGNATURES.update({f"{name}_wide": SIGNATURES[name] for name in WIDE_ENTRIES})
 
 
 class LaunchCounter:
@@ -180,11 +192,52 @@ def launch(entry: str, counter: LaunchCounter, *args):
 
 def check_head_dim(d: int):
     """Raise unless 1 <= d <= ``MAX_HEAD_DIM``: every kernel's wrapper
-    calls this first, on any device.  Wider heads (192, 256) are ROADMAP
-    A.9."""
+    calls this first, on any device.  No configuration of either package
+    has a wider head (ROADMAP C.2)."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernels take 1 <= d <= "
-                         f"{MAX_HEAD_DIM}; wider heads are ROADMAP A.9")
+                         f"{MAX_HEAD_DIM}; no configuration has a wider head "
+                         "(ROADMAP C.2)")
+
+
+def is_wide(d: int) -> bool:
+    """Whether head dim ``d`` takes the wide route (d > 128)."""
+    return d > NARROW_HEAD_DIM
+
+
+def pad_head(t, width: int = MAX_HEAD_DIM):
+    """``t`` zero-padded on its last axis to ``width`` (``t`` itself, no
+    copy, when it is that wide already).  Zero columns of q and k change no
+    score, and zero columns of v (or of g~) add only zero output columns;
+    the caller keeps the scale of the true d."""
+    d = t.shape[-1]
+    if d == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - d))
+
+
+def route_width(d: int, narrow=None) -> int:
+    """The head width a kernel family runs head dim ``d`` at: d itself at
+    d <= 128, or the smallest of ``narrow`` that is >= d where the family's
+    narrow kernels are built for those widths only (the paged pair: 32,
+    64, 128); ``MAX_HEAD_DIM`` at d > 128."""
+    if is_wide(d):
+        return MAX_HEAD_DIM
+    return d if narrow is None else next(w for w in narrow if w >= d)
+
+
+def route_entry(entry: str, d: int, *tensors, narrow=None):
+    """The C entry of a kernel family at head dim ``d`` and the tensors it
+    takes, zero-padded on the last axis to ``route_width(d, narrow)``:
+    ``entry`` at d <= 128, ``<entry>_wide`` at d > 128."""
+    w = route_width(d, narrow)
+    return ((f"{entry}_wide" if is_wide(w) else entry),
+            tuple(pad_head(t, w) for t in tensors))
+
+
+def unpad_head(t, d: int):
+    """The first ``d`` columns of a wide-route output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def check_tensor(name, t, shape, dtype, device):

@@ -20,8 +20,11 @@ one packed ``cu_seqlens`` stream, attention never crossing a segment).
     route.  The kernel has no backward, as the TPU kernel has none: a call
     that autograd would have to differentiate raises, on either device.
 
-Unlike the TPU wrappers nothing is padded (no 128-lane d, no power-of-two
-lengths); the mask semantics are kept: a masked key never attends, a
+Unlike the TPU wrappers nothing is padded at d <= 128 (no 128-lane d, no
+power-of-two lengths); at 128 < d <= 256 q, k and v are zero-padded to 256
+for the wide kernel (``csrc/wide_attention.cu``, one warp per query, keys
+streamed in tiles of 32; the same launch counter).  The mask semantics are
+kept: a masked key never attends, a
 padding token of the varlen stream (past ``cu[N]``) returns zeros, masked
 scores are ``NEG_INF = -1e30``, not ``-inf``.  (The TPU varlen kernel lets
 padding tokens attend one another; its callers slice them off.)
@@ -32,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_head_dim, check_tensor, launch)
+                                      check_head_dim, check_tensor, launch,
+                                      route_entry, unpad_head)
 
 NEG_INF = -1e30
 LAUNCHES = LaunchCounter("flash_attention")
@@ -131,8 +135,8 @@ def _check_common(name, q, k, v, q_shape, kv_shape):
 
 def flash_attention_cuda(q, k, v, scale=None, window: int = 0):
     """Kernel #9.  q: (B, Hq, Tq, d); k, v: (B, Hkv, Tk, d), contiguous fp32
-    or bf16, d <= 128, Hq % Hkv == 0; q rows at positions Tk - Tq + i.
-    Raises on anything else."""
+    or bf16, d <= 256 (the wide kernel above 128), Hq % Hkv == 0; q rows at
+    positions Tk - Tq + i.  Raises on anything else."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-d, got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
@@ -145,16 +149,17 @@ def flash_attention_cuda(q, k, v, scale=None, window: int = 0):
     _check_common("flash_attention_cuda", q, k, v, (B, Hq, Tq, d),
                   (B, Hkv, Tk, d))
     scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v) = route_entry("repro_flash_attention", d, q, k, v)
     out = torch.empty_like(q)
-    launch("repro_flash_attention", LAUNCHES, q, k, v, out, B, Hq, Hkv, Tq,
-           Tk, d, int(window), Tk - Tq, scale, DTYPE_CODE[q.dtype])
-    return out
+    launch(entry, LAUNCHES, q, k, v, out, B, Hq, Hkv, Tq, Tk, q.shape[-1],
+           int(window), Tk - Tq, scale, DTYPE_CODE[q.dtype])
+    return unpad_head(out, d)
 
 
 def flash_attention_varlen_cuda(q, k, v, cu_seqlens, scale=None,
                                 window: int = 0):
     """Kernel #10.  q: (total, Hq, d); k, v: (total, Hkv, d), contiguous
-    fp32 or bf16, d <= 128; cu_seqlens: (N+1,) int32 on the same device,
+    fp32 or bf16, d <= 256 (the wide kernel above 128); cu_seqlens: (N+1,) int32 on the same device,
     cu[0] == 0, nondecreasing, cu[N] <= total.  Raises on anything else."""
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"q and k must be (total, H, d), got "
@@ -174,11 +179,12 @@ def flash_attention_varlen_cuda(q, k, v, cu_seqlens, scale=None,
     check_tensor("cu_seqlens", cu_seqlens, (N + 1,), torch.int32, q.device)
     seg = token_segments(cu_seqlens, total)
     scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v) = route_entry("repro_flash_attention_varlen", d, q, k,
+                                   v)
     out = torch.empty_like(q)
-    launch("repro_flash_attention_varlen", LAUNCHES_VARLEN, q, k, v, seg,
-           cu_seqlens, out, total, N, Hq, Hkv, d, int(window), scale,
-           DTYPE_CODE[q.dtype])
-    return out
+    launch(entry, LAUNCHES_VARLEN, q, k, v, seg, cu_seqlens, out, total, N,
+           Hq, Hkv, q.shape[-1], int(window), scale, DTYPE_CODE[q.dtype])
+    return unpad_head(out, d)
 
 
 def _refuse_autograd(name, *tensors):

@@ -9,32 +9,38 @@ Replaces two TPU kernels of ``repro/kernels/mosa_attention.py``:
     CUDA kernels (``csrc/mosa_attention.cu``);
   * ``mosa_attention_fwd_res_ref`` / ``mosa_attention_fwd_res_cuda`` — the
     training forward: ``o_pre`` (not scaled by r) and ``lse`` per query;
-  * each ``*_cuda`` picks one of two routes and launches it once: the
-    one-row kernel (``*_row_cuda``: one thread block holds a whole row,
-    when ``row_fits(S, d)``: S <= 64, d <= 128) or the streaming kernel
-    (``*_stream_cuda``: any S; one block per row and owned tile of 64
-    queries, the keys streamed in tiles of 32 through two cp.async stages,
-    key tiles no query of the block can see skipped by value, register-
-    tiled products and an online softmax; two launches bitwise equal, and
-    at S <= 32 the bits of the one-row kernel); both count on the same
-    launch counter;
+  * each ``*_cuda`` picks one of three routes (``fwd_route``) and launches
+    it once: the one-row kernel (``*_row_cuda``: one thread block holds a
+    whole row, when ``row_fits(S, d)``: S <= 64, d <= 128), the streaming
+    kernel (``*_stream_cuda``: any S at d <= 128; one block per row and
+    owned tile of 64 queries, the keys streamed in tiles of 32 through two
+    cp.async stages, key tiles no query of the block can see skipped by
+    value, register-tiled products and an online softmax; two launches
+    bitwise equal, and at S <= 32 the bits of the one-row kernel) or, at
+    128 < d <= 256, the wide kernel (``*_wide_cuda``,
+    ``csrc/wide_attention.cu``: q, k and v zero-padded to d 256, one warp
+    per query, keys streamed in tiles of 32); all count on the same launch
+    counter;
   * ``mosa_attention`` — dispatch.  A call that autograd must
     differentiate (grad enabled and any of q, k, v, r requiring grad) goes
     through the ``torch.autograd.Function`` of ``kernels.mosa_vjp``;
     otherwise a CUDA tensor goes to the kernel and a CPU tensor to the
     plain version.  There is no other route.
 
-Unlike the TPU wrapper nothing is padded: the kernels take any S and any
-d <= 128, mask a ragged key tile, and compute no padded query.
+Unlike the TPU wrapper nothing is padded at d <= 128: the kernels take
+any S and any d <= 128, mask a ragged key tile, and compute no padded
+query.  A wider head (up to 256) is padded to 256, as the TPU wrapper pads
+to its 128 lanes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
+from repro_torch.kernels.build import (DTYPE_CODE, NARROW_HEAD_DIM,
                                       LaunchCounter, check_head_dim,
-                                      check_tensor, launch)
+                                      check_tensor, is_wide, launch,
+                                      route_entry, unpad_head)
 
 NEG_INF = -1e30
 ROW_MAX_S = 64
@@ -46,7 +52,15 @@ def row_fits(S, d):
     """Whether a row of S selected tokens of width d fits one thread block:
     the route of the one-row forward (#1, #2 and their block forms #5,
     #6) and of the fused backward (``kernels.mosa_backward``)."""
-    return 1 <= S <= ROW_MAX_S and 1 <= d <= MAX_HEAD_DIM
+    return 1 <= S <= ROW_MAX_S and 1 <= d <= NARROW_HEAD_DIM
+
+
+def fwd_route(S, d):
+    """The forward kernels' route at S selected tokens of width d:
+    "row" where ``row_fits``, "wide" at d > 128, else "stream"."""
+    if row_fits(S, d):
+        return "row"
+    return "wide" if is_wide(d) else "stream"
 
 
 def wide(t):
@@ -122,32 +136,41 @@ def check_mosa_inputs(name, q, k, v, idx, seg):
     return B, H, S, d
 
 
-def _forward_cuda(route, q, k, v, idx, r, scale, seg):
-    """One launch of #1 (``r`` given) or #2 (``r`` None) on ``route``, "row"
-    or "stream"."""
-    name = "mosa_attention" if r is not None else "mosa_attention_fwd_res"
-    B, H, S, d = check_mosa_inputs(f"{name}_{route}_cuda", q, k, v, idx, seg)
+def check_route(route, S, d):
+    """Raise unless the forward route ``route`` takes (S, d)."""
     if route == "row" and not row_fits(S, d):
         raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
-                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
-    entry = f"repro_{name}" + ("_row" if route == "row" else "")
+                         f"d <= {NARROW_HEAD_DIM}, got S={S}, d={d}")
+    if route == "stream" and is_wide(d):
+        raise ValueError(f"the streaming kernel takes d <= "
+                         f"{NARROW_HEAD_DIM}, got d={d}")
+    if route == "wide" and not is_wide(d):
+        raise ValueError(f"the wide kernel takes d > {NARROW_HEAD_DIM}, got "
+                         f"d={d}")
+
+
+def _forward_cuda(route, q, k, v, idx, r, scale, seg):
+    """One launch of #1 (``r`` given) or #2 (``r`` None) on ``route``,
+    "row", "stream" or "wide" (q, k, v zero-padded to d 256, the output
+    sliced back)."""
+    name = "mosa_attention" if r is not None else "mosa_attention_fwd_res"
+    B, H, S, d = check_mosa_inputs(f"{name}_{route}_cuda", q, k, v, idx, seg)
+    check_route(route, S, d)
+    entry, (q, k, v) = route_entry(
+        f"repro_{name}" + ("_row" if route == "row" else ""), d, q, k, v)
     scale = float(scale if scale is not None else d ** -0.5)
+    w = q.shape[-1]
     if r is not None:
         check_tensor("r", r, (B, H, S), torch.float32, q.device)
         out = torch.empty_like(q)
-        launch(entry, LAUNCHES, q, k, v, idx, seg, r, out, B * H, S, d, scale,
+        launch(entry, LAUNCHES, q, k, v, idx, seg, r, out, B * H, S, w, scale,
                DTYPE_CODE[q.dtype])
-        return out
-    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
+        return unpad_head(out, d)
+    o_pre = torch.empty((B, H, S, w), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     launch(entry, LAUNCHES_FWD_RES, q, k, v, idx, seg, o_pre, lse, B * H, S,
-           d, scale, DTYPE_CODE[q.dtype])
-    return o_pre, lse
-
-
-def fits_one_row(q):
-    """Whether the one-row kernels take ``q`` (B, H, S, d)."""
-    return q.dim() == 4 and row_fits(q.shape[2], q.shape[3])
+           w, scale, DTYPE_CODE[q.dtype])
+    return unpad_head(o_pre, d), lse
 
 
 def mosa_attention_row_cuda(q, k, v, idx, r, scale=None, seg=None):
@@ -162,12 +185,24 @@ def mosa_attention_stream_cuda(q, k, v, idx, r, scale=None, seg=None):
     return _forward_cuda("stream", q, k, v, idx, r, scale, seg)
 
 
+def mosa_attention_wide_cuda(q, k, v, idx, r, scale=None, seg=None):
+    """Kernel #1 on the wide route (any S, 128 < d <= 256)."""
+    return _forward_cuda("wide", q, k, v, idx, r, scale, seg)
+
+
+def route_of(q):
+    """``fwd_route`` of q (B, H, S, d); any other shape goes to the
+    streaming wrapper, whose checks refuse it."""
+    return fwd_route(q.shape[-2], q.shape[-1]) if q.dim() == 4 else "stream"
+
+
 def mosa_attention_cuda(q, k, v, idx, r, scale=None, seg=None):
-    """Kernel #1: the one-row kernel where ``row_fits(S, d)``, the streaming
-    kernel otherwise.  Inputs as ``mosa_attention_row_cuda``."""
-    if fits_one_row(q):
-        return mosa_attention_row_cuda(q, k, v, idx, r, scale, seg)
-    return mosa_attention_stream_cuda(q, k, v, idx, r, scale, seg)
+    """Kernel #1 on the route ``fwd_route(S, d)`` names.  Inputs as
+    ``mosa_attention_row_cuda``."""
+    fn = {"row": mosa_attention_row_cuda,
+          "stream": mosa_attention_stream_cuda,
+          "wide": mosa_attention_wide_cuda}[route_of(q)]
+    return fn(q, k, v, idx, r, scale, seg)
 
 
 def mosa_attention_fwd_res_row_cuda(q, k, v, idx, scale=None, seg=None):
@@ -182,11 +217,17 @@ def mosa_attention_fwd_res_stream_cuda(q, k, v, idx, scale=None, seg=None):
     return _forward_cuda("stream", q, k, v, idx, None, scale, seg)
 
 
+def mosa_attention_fwd_res_wide_cuda(q, k, v, idx, scale=None, seg=None):
+    """Kernel #2 on the wide route."""
+    return _forward_cuda("wide", q, k, v, idx, None, scale, seg)
+
+
 def mosa_attention_fwd_res_cuda(q, k, v, idx, scale=None, seg=None):
     """Kernel #2 on the route ``mosa_attention_cuda`` takes."""
-    if fits_one_row(q):
-        return mosa_attention_fwd_res_row_cuda(q, k, v, idx, scale, seg)
-    return mosa_attention_fwd_res_stream_cuda(q, k, v, idx, scale, seg)
+    fn = {"row": mosa_attention_fwd_res_row_cuda,
+          "stream": mosa_attention_fwd_res_stream_cuda,
+          "wide": mosa_attention_fwd_res_wide_cuda}[route_of(q)]
+    return fn(q, k, v, idx, scale, seg)
 
 
 def mosa_attention_fwd_res(q, k, v, idx, scale=None, seg=None):

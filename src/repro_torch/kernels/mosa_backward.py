@@ -32,6 +32,10 @@ exp(-1e30 - lse) is not ~0.
     is bound by bytes and dk/dv by operations on paper, and on an H100
     both by shared-memory loads feeding the fp32 products
     (``csrc/mosa_backward.cu``, PERF.md);
+  * at 128 < d <= 256 the split wrappers launch the wide kernels instead
+    (``csrc/wide_attention.cu``: q, k, v and g~ zero-padded to d 256; dq
+    one warp per query row, dk/dv one warp per key row, the opposite rows
+    streamed in tiles of 32), on the same counters;
   * ``mosa_attention_bwd_cuda`` — the fused kernel where it fits, the two
     split kernels otherwise;
   * ``mosa_attention_bwd`` — the kernels for CUDA tensors, the plain
@@ -44,8 +48,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
-                                      LaunchCounter, check_tensor, launch)
+from repro_torch.kernels.build import (DTYPE_CODE, NARROW_HEAD_DIM,
+                                      LaunchCounter, check_tensor, launch,
+                                      route_entry, unpad_head)
 from repro_torch.kernels.mosa_attention import (ROW_MAX_S,
                                                 check_mosa_inputs, pair_mask,
                                                 row_fits, wide)
@@ -93,15 +98,18 @@ def _check_bwd(name, q, k, v, idx, seg, gt, lse, delta):
 def mosa_attention_bwd_dq_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                                seg=None):
     """Kernel #3: dq.  q, k, v: (B, H, S, d) contiguous fp32 or bf16 with
-    d <= 128; idx, seg: (B, H, S) int32; gt fp32 (B, H, S, d); lse, delta
-    fp32 (B, H, S).  Raises on anything else."""
+    d <= 256 (the wide kernel above 128); idx, seg: (B, H, S) int32; gt
+    fp32 (B, H, S, d); lse, delta fp32 (B, H, S).  Raises on anything
+    else."""
     B, H, S, d = _check_bwd("mosa_attention_bwd_dq_cuda", q, k, v, idx, seg,
                             gt, lse, delta)
     scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v, gt) = route_entry("repro_mosa_attention_bwd_dq", d, q,
+                                       k, v, gt)
     dq = torch.empty_like(q)
-    launch("repro_mosa_attention_bwd_dq", LAUNCHES_DQ, q, k, v, idx, seg, gt,
-           lse, delta, dq, B * H, S, d, scale, DTYPE_CODE[q.dtype])
-    return dq
+    launch(entry, LAUNCHES_DQ, q, k, v, idx, seg, gt, lse, delta, dq, B * H,
+           S, q.shape[-1], scale, DTYPE_CODE[q.dtype])
+    return unpad_head(dq, d)
 
 
 def mosa_attention_bwd_dkv_cuda(q, k, v, idx, gt, lse, delta, scale=None,
@@ -110,10 +118,12 @@ def mosa_attention_bwd_dkv_cuda(q, k, v, idx, gt, lse, delta, scale=None,
     B, H, S, d = _check_bwd("mosa_attention_bwd_dkv_cuda", q, k, v, idx, seg,
                             gt, lse, delta)
     scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v, gt) = route_entry("repro_mosa_attention_bwd_dkv", d, q,
+                                       k, v, gt)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("repro_mosa_attention_bwd_dkv", LAUNCHES_DKV, q, k, v, idx, seg,
-           gt, lse, delta, dk, dv, B * H, S, d, scale, DTYPE_CODE[q.dtype])
-    return dk, dv
+    launch(entry, LAUNCHES_DKV, q, k, v, idx, seg, gt, lse, delta, dk, dv,
+           B * H, S, q.shape[-1], scale, DTYPE_CODE[q.dtype])
+    return unpad_head(dk, d), unpad_head(dv, d)
 
 
 def mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta, scale=None,
@@ -125,7 +135,7 @@ def mosa_attention_bwd_fused_cuda(q, k, v, idx, gt, lse, delta, scale=None,
                             seg, gt, lse, delta)
     if not fused_bwd_fits(S, d):
         raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
-                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
+                         f"d <= {NARROW_HEAD_DIM}, got S={S}, d={d}")
     scale = float(scale if scale is not None else d ** -0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     launch("repro_mosa_attention_bwd", LAUNCHES, q, k, v, idx, seg, gt, lse,

@@ -38,19 +38,22 @@ identity and each function equals its token-choice counterpart
     per block;
   * ``mosa_block_attention`` — dispatch, as ``mosa_attention`` does.
 
-Unlike the TPU wrapper nothing is padded: S = NB * bs for any NB, any
-d <= 128.
+Unlike the TPU wrapper nothing is padded at d <= 128: S = NB * bs for any
+NB, any d <= 128.  At 128 < d <= 256 every kernel takes the wide route
+(``csrc/wide_attention.cu``, the inputs zero-padded to d 256), as token
+choice's do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_CODE, MAX_HEAD_DIM,
+from repro_torch.kernels.build import (DTYPE_CODE, NARROW_HEAD_DIM,
                                       LaunchCounter, check_head_dim,
-                                      check_tensor, launch)
-from repro_torch.kernels.mosa_attention import (ROW_MAX_S, fits_one_row,
-                                                pair_mask, row_fits,
+                                      check_tensor, launch, route_entry,
+                                      unpad_head)
+from repro_torch.kernels.mosa_attention import (check_route, pair_mask,
+                                                route_of, row_fits,
                                                 softmax_parts, wide)
 from repro_torch.kernels.mosa_backward import (FUSED_MAX_S, bwd_from_mask,
                                                fused_bwd_fits)
@@ -152,27 +155,27 @@ def _check_block_inputs(name, q, k, v, bidx, seg, bs, T):
 
 def _forward_cuda(route, q, k, v, bidx, rblk, bs, T, scale, seg):
     """One launch of #5 (``rblk`` given) or #6 (``rblk`` None) on
-    ``route``, "row" or "stream"."""
+    ``route``, "row", "stream" or "wide"."""
     name = ("mosa_block_attention" if rblk is not None
             else "mosa_block_attention_fwd_res")
     B, H, S, d, NB = _check_block_inputs(f"{name}_{route}_cuda", q, k, v,
                                          bidx, seg, bs, T)
-    if route == "row" and not row_fits(S, d):
-        raise ValueError(f"the one-row kernel takes S <= {ROW_MAX_S} and "
-                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
-    entry = f"repro_{name}" + ("_row" if route == "row" else "")
+    check_route(route, S, d)
+    entry, (q, k, v) = route_entry(
+        f"repro_{name}" + ("_row" if route == "row" else ""), d, q, k, v)
     scale = float(scale if scale is not None else d ** -0.5)
+    w = q.shape[-1]
     if rblk is not None:
         check_tensor("rblk", rblk, (B, H, NB), torch.float32, q.device)
         out = torch.empty_like(q)
-        launch(entry, LAUNCHES, q, k, v, bidx, seg, rblk, out, B * H, S, d,
+        launch(entry, LAUNCHES, q, k, v, bidx, seg, rblk, out, B * H, S, w,
                bs, T, scale, DTYPE_CODE[q.dtype])
-        return out
-    o_pre = torch.empty((B, H, S, d), dtype=torch.float32, device=q.device)
+        return unpad_head(out, d)
+    o_pre = torch.empty((B, H, S, w), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     launch(entry, LAUNCHES_FWD_RES, q, k, v, bidx, seg, o_pre, lse, B * H, S,
-           d, bs, T, scale, DTYPE_CODE[q.dtype])
-    return o_pre, lse
+           w, bs, T, scale, DTYPE_CODE[q.dtype])
+    return unpad_head(o_pre, d), lse
 
 
 def mosa_block_attention_row_cuda(q, k, v, bidx, rblk, bs: int, T: int,
@@ -190,16 +193,21 @@ def mosa_block_attention_stream_cuda(q, k, v, bidx, rblk, bs: int, T: int,
     return _forward_cuda("stream", q, k, v, bidx, rblk, bs, T, scale, seg)
 
 
+def mosa_block_attention_wide_cuda(q, k, v, bidx, rblk, bs: int, T: int,
+                                   scale=None, seg=None):
+    """Kernel #5 on the wide route (any S, 128 < d <= 256)."""
+    return _forward_cuda("wide", q, k, v, bidx, rblk, bs, T, scale, seg)
+
+
 def mosa_block_attention_cuda(q, k, v, bidx, rblk, bs: int, T: int,
                               scale=None, seg=None):
-    """Kernel #5: the one-row kernel where ``row_fits(S, d)``, the
-    streaming kernel otherwise.  Inputs as
-    ``mosa_block_attention_row_cuda``."""
-    if fits_one_row(q):
-        return mosa_block_attention_row_cuda(q, k, v, bidx, rblk, bs, T,
-                                             scale, seg)
-    return mosa_block_attention_stream_cuda(q, k, v, bidx, rblk, bs, T,
-                                            scale, seg)
+    """Kernel #5 on the route ``fwd_route(S, d)`` names (the one-row kernel
+    where ``row_fits(S, d)``, the wide one at d > 128, the streaming one
+    otherwise).  Inputs as ``mosa_block_attention_row_cuda``."""
+    fn = {"row": mosa_block_attention_row_cuda,
+          "stream": mosa_block_attention_stream_cuda,
+          "wide": mosa_block_attention_wide_cuda}[route_of(q)]
+    return fn(q, k, v, bidx, rblk, bs, T, scale, seg)
 
 
 def mosa_block_attention_fwd_res_row_cuda(q, k, v, bidx, bs: int, T: int,
@@ -216,14 +224,19 @@ def mosa_block_attention_fwd_res_stream_cuda(q, k, v, bidx, bs: int, T: int,
     return _forward_cuda("stream", q, k, v, bidx, None, bs, T, scale, seg)
 
 
+def mosa_block_attention_fwd_res_wide_cuda(q, k, v, bidx, bs: int, T: int,
+                                           scale=None, seg=None):
+    """Kernel #6 on the wide route."""
+    return _forward_cuda("wide", q, k, v, bidx, None, bs, T, scale, seg)
+
+
 def mosa_block_attention_fwd_res_cuda(q, k, v, bidx, bs: int, T: int,
                                       scale=None, seg=None):
     """Kernel #6 on the route ``mosa_block_attention_cuda`` takes."""
-    if fits_one_row(q):
-        return mosa_block_attention_fwd_res_row_cuda(q, k, v, bidx, bs, T,
-                                                     scale, seg)
-    return mosa_block_attention_fwd_res_stream_cuda(q, k, v, bidx, bs, T,
-                                                    scale, seg)
+    fn = {"row": mosa_block_attention_fwd_res_row_cuda,
+          "stream": mosa_block_attention_fwd_res_stream_cuda,
+          "wide": mosa_block_attention_fwd_res_wide_cuda}[route_of(q)]
+    return fn(q, k, v, bidx, bs, T, scale, seg)
 
 
 def _check_bwd(name, q, k, v, bidx, seg, gt, lse, delta, bs, T):
@@ -241,12 +254,13 @@ def mosa_block_attention_bwd_dq_cuda(q, k, v, bidx, gt, lse, delta, bs: int,
     gt (B, H, S, d), lse and delta (B, H, S), all fp32."""
     BH, S, d = _check_bwd("mosa_block_attention_bwd_dq_cuda", q, k, v, bidx,
                           seg, gt, lse, delta, bs, T)
+    scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v, gt) = route_entry("repro_mosa_block_attention_bwd_dq",
+                                       d, q, k, v, gt)
     dq = torch.empty_like(q)
-    launch("repro_mosa_block_attention_bwd_dq", LAUNCHES_DQ, q, k, v, bidx,
-            seg, gt, lse, delta, dq, BH, S, d, bs, T,
-            float(scale if scale is not None else d ** -0.5),
-            DTYPE_CODE[q.dtype])
-    return dq
+    launch(entry, LAUNCHES_DQ, q, k, v, bidx, seg, gt, lse, delta, dq, BH, S,
+           q.shape[-1], bs, T, scale, DTYPE_CODE[q.dtype])
+    return unpad_head(dq, d)
 
 
 def mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse, delta,
@@ -254,12 +268,13 @@ def mosa_block_attention_bwd_dkv_cuda(q, k, v, bidx, gt, lse, delta,
     """Kernel #8: (dk, dv).  Inputs as ``mosa_block_attention_bwd_dq_cuda``."""
     BH, S, d = _check_bwd("mosa_block_attention_bwd_dkv_cuda", q, k, v, bidx,
                           seg, gt, lse, delta, bs, T)
+    scale = float(scale if scale is not None else d ** -0.5)
+    entry, (q, k, v, gt) = route_entry("repro_mosa_block_attention_bwd_dkv",
+                                       d, q, k, v, gt)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("repro_mosa_block_attention_bwd_dkv", LAUNCHES_DKV, q, k, v, bidx,
-            seg, gt, lse, delta, dk, dv, BH, S, d, bs, T,
-            float(scale if scale is not None else d ** -0.5),
-            DTYPE_CODE[q.dtype])
-    return dk, dv
+    launch(entry, LAUNCHES_DKV, q, k, v, bidx, seg, gt, lse, delta, dk, dv,
+           BH, S, q.shape[-1], bs, T, scale, DTYPE_CODE[q.dtype])
+    return unpad_head(dk, d), unpad_head(dv, d)
 
 
 def mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse, delta,
@@ -272,7 +287,7 @@ def mosa_block_attention_bwd_fused_cuda(q, k, v, bidx, gt, lse, delta,
                           bidx, seg, gt, lse, delta, bs, T)
     if not fused_bwd_fits(S, d):
         raise ValueError(f"the fused backward takes S <= {FUSED_MAX_S} and "
-                         f"d <= {MAX_HEAD_DIM}, got S={S}, d={d}")
+                         f"d <= {NARROW_HEAD_DIM}, got S={S}, d={d}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     launch("repro_mosa_block_attention_bwd", LAUNCHES_BWD, q, k, v, bidx,
             seg, gt, lse, delta, dq, dk, dv, BH, S, d, bs, T,

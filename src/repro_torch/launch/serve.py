@@ -45,6 +45,12 @@ CLI (the card unless ``--device cpu``):
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \\
       --preset smoke --variant mosa   # a mesh of 4 ranks; rank 0 prints
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+      --preset full --max-len 2080 --prompt-len 2048 --gen 32
+``--arch`` takes every registered config (``configs.base.config_names``:
+mosa-paper, qwen2-1.5b, yi-9b, yi-34b, musicgen-large, gemma3-4b) and
+``--preset`` its ``smoke`` or ``full`` preset; ``--variant`` is
+mosa-paper's.
 """
 
 from __future__ import annotations
@@ -656,8 +662,9 @@ def _load_run(cfg, args, device):
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="mosa-paper")
-    p.add_argument("--preset", default="smoke")
+    p.add_argument("--arch", default="mosa-paper",
+                   help="a registered config (configs.base.config_names)")
+    p.add_argument("--preset", default="smoke", help="smoke | full")
     p.add_argument("--variant", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; raises "

@@ -346,9 +346,25 @@ class TransformerLM(nn.Module):
             return None
         return lambda t: ctx.all_reduce(t.contiguous(), ctx.dp_axes)
 
-    def _forward(self, tokens, positions=None, segments=None,
-                 collect_health: bool = False):
+    def _embed_tokens(self, tokens=None, inputs_embeds=None):
+        """The backbone's input: ``inputs_embeds`` (a stub frontend's
+        precomputed frame or patch embeddings) cast to the compute dtype
+        when given, else the token embeddings, scaled by sqrt(d_model) for
+        the gemma family (an RMSNorm config whose name starts with
+        "gemma", as the JAX package decides it; the factor is rounded to
+        the compute dtype first, as there)."""
+        c = self.cfg
+        if inputs_embeds is not None:
+            return inputs_embeds.to(c.cdtype)
         x = self.embed(tokens)
+        if c.norm == "rmsnorm" and c.name.startswith("gemma"):
+            x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _forward(self, tokens, positions=None, segments=None,
+                 collect_health: bool = False, inputs_embeds=None):
+        x = self._embed_tokens(tokens, inputs_embeds)
         health = {}
         if collect_health:
             x, aux, health = self.backbone(x, positions, segments, True)
@@ -356,13 +372,17 @@ class TransformerLM(nn.Module):
             x, aux = self.backbone(x, positions, segments)
         return self._logits(self.final_norm(x)), aux, health
 
-    def forward(self, tokens, positions=None, segments=None):
-        """tokens (B, T) -> (logits fp32 (B, T, vocab), aux loss)."""
-        x, aux = self.backbone(self.embed(tokens), positions, segments)
+    def forward(self, tokens=None, positions=None, segments=None,
+                inputs_embeds=None):
+        """tokens (B, T) (or ``inputs_embeds`` (B, T, h)) -> (logits fp32
+        (B, T, vocab), aux loss)."""
+        x, aux = self.backbone(self._embed_tokens(tokens, inputs_embeds),
+                               positions, segments)
         return self._full_logits(self.final_norm(x)), aux
 
     def loss(self, batch, with_health: bool = False, denom=None):
-        """batch: {"tokens" (B, T), "labels" (B, T)}, labels < 0 masked;
+        """batch: {"tokens" (B, T) or "embeds" (B, T, h), "labels" (B,
+        T)}, labels < 0 masked;
         packed rows add "segments" (B, T) document ids and per-document
         "positions".  Returns (loss, metrics) with metrics ``ce``, ``aux``,
         ``ppl`` and ``tokens`` (0-d tensors), plus the router health keys
@@ -371,8 +391,9 @@ class TransformerLM(nn.Module):
         default this batch's)."""
         labels = batch["labels"]
         logits, aux, health = self._forward(
-            batch["tokens"], batch.get("positions"), batch.get("segments"),
-            collect_health=with_health)
+            batch.get("tokens"), batch.get("positions"),
+            batch.get("segments"), collect_health=with_health,
+            inputs_embeds=batch.get("embeds"))
         logits = logits.float()
         mask = (labels >= 0).float()
         nll = self._nll(logits, labels) * mask
@@ -385,13 +406,14 @@ class TransformerLM(nn.Module):
                    "tokens": denom, **health}
         return ce + aux, metrics
 
-    def router_health(self, tokens, positions=None):
+    def router_health(self, tokens=None, positions=None, inputs_embeds=None):
         """Router health averaged over every MoSA layer for ``tokens`` ({}
         without MoSA layers): the standalone face of
         ``backbone(collect_health=True)``."""
         with torch.no_grad():
-            _, _, health = self.backbone(self.embed(tokens), positions,
-                                         collect_health=True)
+            _, _, health = self.backbone(
+                self._embed_tokens(tokens, inputs_embeds), positions,
+                collect_health=True)
         return health
 
     # ---------------------------------------------------------------- serving
@@ -445,12 +467,13 @@ class TransformerLM(nn.Module):
         return caches
 
     def prefill(self, tokens, caches, positions=None, valid=None,
-                last_pos=None, continued: bool = False):
-        """tokens (B, T) -> (logits (B, 1, V) at ``last_pos`` (default the
-        last token), caches).  ``valid``: (B, T) bool, False marks right-pad
+                last_pos=None, continued: bool = False, inputs_embeds=None):
+        """tokens (B, T) (or ``inputs_embeds`` (B, T, h), with ``tokens``
+        None) -> (logits (B, 1, V) at ``last_pos`` (default the last
+        token), caches).  ``valid``: (B, T) bool, False marks right-pad
         tokens.  ``continued``: the caches hold a restored prompt prefix
         (a prefix-cache hit) and ``tokens`` are the suffix."""
-        x = self.embed(tokens)
+        x = self._embed_tokens(tokens, inputs_embeds)
         new = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.prefill(x, cache, positions, valid, continued)
@@ -475,7 +498,7 @@ class TransformerLM(nn.Module):
         C = tokens.shape[1]
         meta = packed_meta(cu_seqlens, rows, past_lens, C, tokens.device)
         cul = meta["cu"].long()
-        x = self.embed(tokens)
+        x = self._embed_tokens(tokens)
         new = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.prefill_packed(x, cache, meta)
@@ -486,7 +509,7 @@ class TransformerLM(nn.Module):
 
     def decode_step(self, token, caches, positions=None):
         """token: (B, 1) -> (logits (B, 1, V), caches)."""
-        x = self.embed(token)
+        x = self._embed_tokens(token)
         new = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.decode_step(x, cache, positions)

@@ -16,10 +16,14 @@ Decode replaces the TPU kernel ``_paged_kernel`` of
   * ``paged_attention_decode`` — the dispatcher: a CUDA tensor goes to the
     kernel, a CPU tensor to the plain version.  There is no other route.
 
-Both kernels are built for head dims 32, 64 and 128 (``HEAD_DIMS``); their
-wrappers take any 1 <= d <= 128 by zero-padding q and the pools to the next
-of these widths and slicing the output back (``_run_padded``, as the JAX
-wrappers' ``_pad_lane``), and raise for d > 128 (ROADMAP A.9).
+Both kernels are built for head dims 32, 64 and 128, and each has a wide
+form at 256 (``csrc/wide_attention.cu``: one block per (row or token, KV
+head), one warp per query head of the group, keys streamed through the
+block table in tiles of 32; the same launch counter); together these are
+``HEAD_DIMS``.  The wrappers take any 1 <= d <= 256 by zero-padding q and
+the pools to the next of these widths and slicing the output back
+(``_run_padded``, as the JAX wrappers' ``_pad_lane``), and raise for
+d > 256 (ROADMAP C.2).
 
 Packed prefill replaces ``_paged_prefill_kernel``: a chunk of N segments
 flattened back to back (``cu_seqlens``), segment n continuing batch row
@@ -40,11 +44,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LaunchCounter,
-                                      check_head_dim, check_tensor, launch)
+                                      check_head_dim, check_tensor, launch,
+                                      route_entry, route_width, unpad_head)
 from repro_torch.serve.paged_kv import PagedDenseKVCache
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+NARROW_DIMS = (32, 64, 128)     # the narrow kernels' builds
+HEAD_DIMS = NARROW_DIMS + (256,)
 MAX_GROUP = 8            # query heads per KV head the kernel takes
 LAUNCHES = LaunchCounter("paged_attention_decode")
 LAUNCHES_PREFILL = LaunchCounter("paged_prefill_attention")
@@ -153,27 +159,25 @@ def decode_grid(B: int, Hq: int, Hkv: int, d: int, nb: int, bs: int,
 
 def padded_head_dim(d: int) -> int:
     """The width the paged kernels run a head dim ``d`` at: the smallest
-    of ``HEAD_DIMS`` that is >= d.  Raises for d > 128 (ROADMAP A.9)."""
+    of ``HEAD_DIMS`` that is >= d.  Raises for d > 256 (ROADMAP C.2)."""
     check_head_dim(d)
-    return next(w for w in HEAD_DIMS if w >= d)
+    return route_width(d, NARROW_DIMS)
 
 
-def _run_padded(kernel, q, k_pool, v_pool, *args):
-    """``kernel`` on q and both pools zero-padded on the last axis to
-    ``padded_head_dim(d)``, its output sliced back to d, as the JAX
-    wrappers' ``_pad_lane`` does.  Zero columns change no score and add
-    only zero output columns, in fp32 and bf16 alike; the caller's scale
-    (computed on the true d) is passed through.  At d in ``HEAD_DIMS`` the
-    tensors go to the kernel as they are, with no copy; otherwise each
-    call copies q and both whole pools (ROADMAP A.9 has the kernel-side
-    alternative)."""
+def _run_padded(entry, kernel, q, k_pool, v_pool, *args):
+    """``kernel`` on the C entry ``route_entry`` picks for head dim d, with
+    q and both pools zero-padded on the last axis to ``padded_head_dim(d)``
+    and its output sliced back to d, as the JAX wrappers' ``_pad_lane``
+    does.  Zero columns change no score and add only zero output columns,
+    in fp32 and bf16 alike; the caller's scale (computed on the true d) is
+    passed through.  At d in ``HEAD_DIMS`` the tensors go to the kernel as
+    they are, with no copy; otherwise each call copies q and both whole
+    pools (ROADMAP B names the kernel-side alternative)."""
     d = q.shape[-1]
-    w = padded_head_dim(d)
-    if w == d:
-        return kernel(q, k_pool, v_pool, *args)
-    q, k_pool, v_pool = (torch.nn.functional.pad(t, (0, w - d))
-                         for t in (q, k_pool, v_pool))
-    return kernel(q, k_pool, v_pool, *args)[..., :d]
+    check_head_dim(d)
+    entry, (q, k_pool, v_pool) = route_entry(entry, d, q, k_pool, v_pool,
+                                             narrow=NARROW_DIMS)
+    return unpad_head(kernel(q, k_pool, v_pool, *args, entry=entry), d)
 
 
 def _check_geometry(q, k_pool):
@@ -196,16 +200,17 @@ def _check_aligned(**tensors):
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, scale):
     """The CUDA kernel.  q: (B, Hq, d); pools (N, bs, Hkv, d), contiguous
-    fp32 or bf16 with 1 <= d <= 128 and Hq / Hkv <= 8; block_table (B, nb)
+    fp32 or bf16 with 1 <= d <= 256 and Hq / Hkv <= 8; block_table (B, nb)
     int32; lengths (B,) int32.  Raises on anything else.  A d outside
     ``HEAD_DIMS`` runs zero-padded (``_run_padded``: a copy of q and both
     pools per call); one launch either way."""
-    return _run_padded(_decode_kernel, q, k_pool, v_pool, block_table,
-                       lengths, scale)
+    return _run_padded("repro_paged_attention_decode", _decode_kernel, q,
+                       k_pool, v_pool, block_table, lengths, scale)
 
 
-def _decode_kernel(q, k_pool, v_pool, block_table, lengths, scale):
-    """One launch of the decode kernel at d in ``HEAD_DIMS``."""
+def _decode_kernel(q, k_pool, v_pool, block_table, lengths, scale, *, entry):
+    """One launch of the decode kernel's C entry ``entry`` at d in
+    ``HEAD_DIMS``."""
     if not q.is_cuda:
         raise ValueError("paged_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 4:
@@ -223,9 +228,8 @@ def _decode_kernel(q, k_pool, v_pool, block_table, lengths, scale):
     check_tensor("lengths", lengths, (B,), torch.int32, dev)
     _check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     out = torch.empty_like(q)
-    launch("repro_paged_attention_decode", LAUNCHES, q, k_pool, v_pool,
-           block_table, lengths, out, B, Hq, Hkv, d, bs, nb, float(scale),
-           DTYPE_CODE[q.dtype])
+    launch(entry, LAUNCHES, q, k_pool, v_pool, block_table, lengths, out, B,
+           Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype])
     return out
 
 
@@ -312,18 +316,20 @@ def prefill_grid(total: int, N: int, Hq: int, Hkv: int, d: int, nb: int,
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_table, cu_seqlens,
                                  row_of_seg, past_lens, scale):
     """The CUDA kernel.  q: (total, Hq, d) packed; pools (P, bs, Hkv, d),
-    contiguous fp32 or bf16 with 1 <= d <= 128 and Hq / Hkv <= 8;
+    contiguous fp32 or bf16 with 1 <= d <= 256 and Hq / Hkv <= 8;
     block_table (B, nb), cu_seqlens (N + 1,), row_of_seg and past_lens
     (N,), all int32.  Raises on anything else.  Padding tokens and
     inactive segments come back as exact zeros (the kernel writes them).
     A d outside ``HEAD_DIMS`` runs zero-padded, as for decode."""
-    return _run_padded(_prefill_kernel, q, k_pool, v_pool, block_table,
-                       cu_seqlens, row_of_seg, past_lens, scale)
+    return _run_padded("repro_paged_prefill_attention", _prefill_kernel, q,
+                       k_pool, v_pool, block_table, cu_seqlens, row_of_seg,
+                       past_lens, scale)
 
 
 def _prefill_kernel(q, k_pool, v_pool, block_table, cu_seqlens, row_of_seg,
-                    past_lens, scale):
-    """The split and merge launches (one count) at d in ``HEAD_DIMS``."""
+                    past_lens, scale, *, entry):
+    """The C entry ``entry``: the split and merge launches (one count) at
+    d <= 128, the wide kernel's one launch at d 256."""
     if not q.is_cuda:
         raise ValueError("paged_prefill_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 4:
@@ -347,11 +353,14 @@ def _prefill_kernel(q, k_pool, v_pool, block_table, cu_seqlens, row_of_seg,
     if N == 0 or total == 0:
         return torch.zeros_like(q)
     out = torch.empty_like(q)
-    _, _, ws_shape = prefill_grid(total, N, Hq, Hkv, d, nb, bs)
-    ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
-    launch("repro_paged_prefill_attention", LAUNCHES_PREFILL, q, k_pool,
-           v_pool, block_table, cu_seqlens, row_of_seg, past_lens, out, ws,
-           total, N, Hq, Hkv, d, bs, nb, float(scale), DTYPE_CODE[q.dtype])
+    if entry.endswith("_wide"):         # one launch, no split workspace
+        ws = None
+    else:
+        _, _, ws_shape = prefill_grid(total, N, Hq, Hkv, d, nb, bs)
+        ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
+    launch(entry, LAUNCHES_PREFILL, q, k_pool, v_pool, block_table,
+           cu_seqlens, row_of_seg, past_lens, out, ws, total, N, Hq, Hkv, d,
+           bs, nb, float(scale), DTYPE_CODE[q.dtype])
     return out
 
 

@@ -55,7 +55,7 @@ ENTRIES = c_entries()
 
 
 @pytest.mark.parametrize("S", [1, 32, 64, 65, 70])
-@pytest.mark.parametrize("d", [32, 64, 128, 129])
+@pytest.mark.parametrize("d", [32, 64, 128, 129, 256])
 def test_fused_bwd_fits(S, d):
     assert kbwd.fused_bwd_fits(S, d) == (S <= 64 and d <= 128)
 
@@ -95,7 +95,8 @@ def test_cpu_backward_is_the_plain_version(with_seg):
 
 @pytest.mark.parametrize("S,d,route", [(1, 16, "fused"), (37, 16, "fused"),
                                        (64, 128, "fused"), (65, 16, "split"),
-                                       (70, 80, "split")])
+                                       (70, 80, "split"), (32, 256, "split"),
+                                       (64, 160, "split")])
 def test_bwd_cuda_route(monkeypatch, S, d, route):
     """The route ``mosa_attention_bwd_cuda`` takes at (S, d), with the
     kernel wrappers replaced by recording stubs."""

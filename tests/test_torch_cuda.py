@@ -49,7 +49,12 @@ bit for bit equal to the split #3 and #4.  The streaming forward #1 and #2
 300, d 32 to 128, sorted and unsorted idx, -1 keys, r = 0 rows and
 segments, and on a query tile whose every key tile is skipped (exact zeros
 and the plain lse); #5 and #6 at NB * bs = 128, and at bs = 1 and S 128
-bit for bit equal to the streaming #1 and #2.
+bit for bit equal to the streaming #1 and #2.  Every kernel's wide route
+(head dims over 128, ``csrc/wide_attention.cu``) is held at d 192 and 256
+against its plain version: #1-#4 at S 64 and 70, #5-#8 with a ragged last
+block, empty blocks and two segments, #9 with GQA, a window and q_offset,
+#10 with a padding tail, #11 and #12 at GQA groups 2, 6 and 7 with a row of
+length 0 and padding tokens (exact zeros); two launches bitwise equal.
 """
 
 import pytest
@@ -1204,3 +1209,167 @@ def test_mesh_server_world1_nccl_matches_plain(dev, tmp_path):
         dist.destroy_process_group()
         torch.use_deterministic_algorithms(prev)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The wide route (csrc/wide_attention.cu): every kernel at head dims 192 and
+# 256 (q, k, v and the pools zero-padded to 256 by the wrappers) against its
+# plain version; each wrapper call one count, two launches bitwise equal.
+WIDE_D = [192, 256]
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def _counted_twice(counter, fn):
+    before = counter.count
+    got, again = fn(), fn()
+    assert counter.count == before + 2
+    got, again = (x if isinstance(x, tuple) else (x,) for x in (got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("S,with_seg,unsorted", [(64, False, False),
+                                                 (70, True, True)])
+def test_wide_mosa_kernels_match_plain(dev, dtype, d, S, with_seg, unsorted):
+    """#1, #2 and the split #3 and #4 on the wide route (S 64 and 70, -1
+    keys, r = 0 rows, segments, unsorted idx)."""
+    from repro_torch.kernels import mosa_attention as km
+    from repro_torch.kernels import mosa_backward as kb
+    assert km.fwd_route(S, d) == "wide" and not kb.fused_bwd_fits(S, d)
+    q, k, v, idx, r, seg, gout = _train_inputs(dev, 2, 3, S, d, 300, 4, 3,
+                                               with_seg, unsorted)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got, = _counted_twice(km.LAUNCHES, lambda: km.mosa_attention_cuda(
+        q, k, v, idx, r, seg=seg))
+    _close(got, km.mosa_attention_ref(qf, kf, vf, idx, r, seg=seg), dtype)
+    o_pre, lse = _counted_twice(
+        km.LAUNCHES_FWD_RES, lambda: km.mosa_attention_fwd_res_cuda(
+            q, k, v, idx, seg=seg))
+    want_o, want_lse = km.mosa_attention_fwd_res_ref(qf, kf, vf, idx,
+                                                     seg=seg)
+    _close(o_pre, want_o, dtype)
+    _close(lse, want_lse, dtype)
+    gt = (gout * r[..., None]).contiguous()
+    args = (q, k, v, idx, gt, want_lse, (gt * want_o).sum(-1).contiguous())
+    want = kb.mosa_attention_bwd_ref(qf, kf, vf, *args[3:], seg=seg)
+    dq, = _counted_twice(kb.LAUNCHES_DQ, lambda: kb.mosa_attention_bwd_dq_cuda(
+        *args, seg=seg))
+    dk, dv = _counted_twice(
+        kb.LAUNCHES_DKV, lambda: kb.mosa_attention_bwd_dkv_cuda(*args,
+                                                                seg=seg))
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("NB,bs,T,empty,two_segs", [(4, 16, 2041, 0, False),
+                                                    (5, 13, 200, 3, True)])
+def test_wide_block_kernels_match_plain(dev, dtype, d, NB, bs, T, empty,
+                                        two_segs):
+    """#5-#8 on the wide route; invalid query rows exact zeros."""
+    from repro_torch.kernels import mosa_block as kb
+    q, k, v, bidx, rblk, seg, gout = _block_inputs(dev, 2, 3, NB, bs, d, T,
+                                                   empty, two_segs)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _, ok = kb.expand_blocks(bidx, bs, T)
+    got, = _counted_twice(kb.LAUNCHES, lambda: kb.mosa_block_attention_cuda(
+        q, k, v, bidx, rblk, bs, T, seg=seg))
+    assert (got[~ok] == 0).all()
+    _close(got, kb.mosa_block_attention_ref(qf, kf, vf, bidx, rblk, bs, T,
+                                            seg=seg), dtype)
+    o_pre, lse = _counted_twice(
+        kb.LAUNCHES_FWD_RES, lambda: kb.mosa_block_attention_fwd_res_cuda(
+            q, k, v, bidx, bs, T, seg=seg))
+    want_o, want_lse = kb.mosa_block_attention_fwd_res_ref(
+        qf, kf, vf, bidx, bs, T, seg=seg)
+    _close(o_pre, want_o, dtype)
+    _close(lse, want_lse, dtype)
+    gt = torch.where(ok[..., None], kb.scale_rows(gout, rblk, bs),
+                     0.0).contiguous()
+    args = (q, k, v, bidx, gt, want_lse, (gt * want_o).sum(-1).contiguous(),
+            bs, T)
+    want = kb.mosa_block_attention_bwd_ref(qf, kf, vf, *args[3:], seg=seg)
+    dq, = _counted_twice(
+        kb.LAUNCHES_DQ, lambda: kb.mosa_block_attention_bwd_dq_cuda(
+            *args, seg=seg))
+    dk, dv = _counted_twice(
+        kb.LAUNCHES_DKV, lambda: kb.mosa_block_attention_bwd_dkv_cuda(
+            *args, seg=seg))
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_wide_flash_kernels_match_plain(dev, dtype, d):
+    """#9 (GQA 8/4 at W 100, Tq 77 < Tk 200 causal, and gemma3-4b's 2048
+    tokens at W 1024) and #10 (W 8, a padding tail of exact zeros) on the
+    wide route."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device=dev).manual_seed(9)
+    for Tq, Tk, W in ((300, 300, 100), (77, 200, 0), (2048, 2048, 1024)):
+        q = torch.randn(2, 8, Tq, d, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(2, 4, Tk, d, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        got, = _counted_twice(F.LAUNCHES, lambda: F.flash_attention_cuda(
+            q, k, v, window=W))
+        _close(got, F.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          window=W), dtype)
+    lens, total = [40, 1, 70, 9], 128
+    q = torch.randn(total, 8, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(total, 2, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    cu = torch.tensor([0, 40, 41, 111, 120], dtype=torch.int32, device=dev)
+    got, = _counted_twice(F.LAUNCHES_VARLEN, lambda: F.flash_attention_varlen_cuda(
+        q, k, v, cu, window=8))
+    assert (got[sum(lens):] == 0).all()
+    _close(got, F.flash_attention_varlen_ref(q.float(), k.float(), v.float(),
+                                             cu, window=8), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("Hq,Hkv", [(8, 4), (14, 2), (12, 2), (4, 4)])
+def test_wide_paged_kernels_match_plain(dev, dtype, d, Hq, Hkv):
+    """#11 (a row of length 0 exact zeros) and #12 (padding and inactive
+    segments exact zeros) on the wide route, GQA groups 2, 7, 6 and 1 (the
+    4/4 dense side of gemma3-4b-mosa32)."""
+    from repro_torch.serve import paged_attention as P
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, bs, nb = 3, 16, 9
+    kp, vp = (torch.randn(B * nb, bs, Hkv, d, device=dev,
+                          generator=g).to(dtype) for _ in range(2))
+    table = torch.randperm(B * nb, device=dev, generator=g).view(B, nb)
+    table = table.to(torch.int32).contiguous()
+    lengths = torch.tensor([0, 130, 1], dtype=torch.int32, device=dev)
+    q = torch.randn(B, Hq, d, device=dev, generator=g).to(dtype)
+    got, = _counted_twice(P.LAUNCHES, lambda: P.paged_attention_cuda(
+        q, kp, vp, table, lengths, d ** -0.5))
+    assert (got[0] == 0).all()
+    want = P.paged_attention_ref(q.float(), kp.float(), vp.float(), table,
+                                 lengths, d ** -0.5)
+    _close(got[1:], want[1:], dtype)
+    segs = [(0, 0, 5), (1, 13, 3), (-1, 0, 4), (2, 9, 6)]
+    cu = torch.tensor([0, 5, 8, 12, 18], dtype=torch.int32, device=dev)
+    rows = torch.tensor([r for r, _, _ in segs], dtype=torch.int32,
+                        device=dev)
+    past = torch.tensor([p for _, p, _ in segs], dtype=torch.int32,
+                        device=dev)
+    qp = torch.randn(24, Hq, d, device=dev, generator=g).to(dtype)
+    _, _, row_of_tok, pos = P.packed_token_layout(cu, rows, past, 24)
+    got, = _counted_twice(P.LAUNCHES_PREFILL,
+                          lambda: P.paged_prefill_attention_cuda(
+                              qp, kp, vp, table, cu, rows, past, d ** -0.5))
+    assert (got[row_of_tok < 0] == 0).all()
+    _close(got, P.paged_prefill_attention_ref(
+        qp.float(), kp.float(), vp.float(), table, row_of_tok, pos,
+        d ** -0.5), dtype)

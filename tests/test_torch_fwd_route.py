@@ -4,9 +4,9 @@
     tokens fit one thread block (S <= 64) and d <= 128;
   * ``mosa_attention_cuda`` / ``mosa_attention_fwd_res_cuda`` (kernels #1
     and #2) and their block-choice forms (#5 and #6) take the one-row
-    kernel where it fits and the streaming kernel otherwise, one launch
-    each (the wrappers are stubbed, so the route is checked without a
-    card);
+    kernel where it fits, the wide kernel at d > 128 and the streaming
+    kernel otherwise, one launch each (the wrappers are stubbed, so the
+    route is checked without a card);
   * every CUDA wrapper, of either route, refuses CPU tensors instead of
     falling back;
   * on the CPU ``mosa_attention`` and ``mosa_block_attention`` (and the
@@ -63,9 +63,11 @@ def _block_inputs(B=2, H=3, NB=5, bs=4, d=16, T=37, seed=0):
 
 
 @pytest.mark.parametrize("S", [1, 32, 64, 65, 70])
-@pytest.mark.parametrize("d", [32, 64, 128, 129])
+@pytest.mark.parametrize("d", [32, 64, 128, 129, 256])
 def test_row_fits(S, d):
     assert kmosa.row_fits(S, d) == (S <= 64 and d <= 128)
+    assert kmosa.fwd_route(S, d) == ("row" if S <= 64 and d <= 128 else
+                                     "wide" if d > 128 else "stream")
 
 
 def _stub(taken, name, residuals):
@@ -81,14 +83,15 @@ def _stub(taken, name, residuals):
 @pytest.mark.parametrize("residuals", [False, True])
 @pytest.mark.parametrize("S,d,route", [
     (1, 16, "row"), (37, 16, "row"), (64, 128, "row"), (65, 16, "stream"),
-    (70, 80, "stream"), (32, 129, "stream")])
+    (70, 80, "stream"), (32, 129, "wide"), (64, 256, "wide"),
+    (70, 192, "wide")])
 def test_fwd_cuda_route(monkeypatch, residuals, S, d, route):
     """The route ``mosa_attention_cuda`` (#1) and
     ``mosa_attention_fwd_res_cuda`` (#2) take at (S, d): one call of the
-    one-row or of the streaming wrapper."""
+    one-row, the streaming or (d > 128) the wide wrapper."""
     taken = []
     stem = "mosa_attention_fwd_res" if residuals else "mosa_attention"
-    for r in ("row", "stream"):
+    for r in ("row", "stream", "wide"):
         monkeypatch.setattr(kmosa, f"{stem}_{r}_cuda",
                             _stub(taken, r, residuals))
     q, k, v, idx, r, seg = _token_inputs(B=1, H=1, S=S, d=d, T=2 * S + 1)
@@ -102,18 +105,18 @@ def test_fwd_cuda_route(monkeypatch, residuals, S, d, route):
 
 
 @pytest.mark.parametrize("residuals", [False, True])
-@pytest.mark.parametrize("d", [128, 129])
+@pytest.mark.parametrize("d", [128, 129, 256])
 @pytest.mark.parametrize("NB,bs", [(2, 16), (4, 16), (37, 1), (2, 64),
                                    (5, 13)])
 def test_block_fwd_cuda_route(monkeypatch, residuals, d, NB, bs):
     """The route ``mosa_block_attention_cuda`` (#5) and
     ``mosa_block_attention_fwd_res_cuda`` (#6) take at S = NB * bs and d:
-    the one-row kernel at S <= 64 and d <= 128, the streaming one
-    otherwise."""
+    the one-row kernel at S <= 64 and d <= 128, the wide one at d > 128,
+    the streaming one otherwise."""
     taken = []
     stem = ("mosa_block_attention_fwd_res" if residuals
             else "mosa_block_attention")
-    for r in ("row", "stream"):
+    for r in ("row", "stream", "wide"):
         monkeypatch.setattr(kblock, f"{stem}_{r}_cuda",
                             _stub(taken, r, residuals))
     T = 2 * NB * bs + 1
@@ -124,11 +127,12 @@ def test_block_fwd_cuda_route(monkeypatch, residuals, d, NB, bs):
                                                  seg=seg)
     else:
         kblock.mosa_block_attention_cuda(q, k, v, bidx, rblk, bs, T, seg=seg)
-    want = "row" if NB * bs <= 64 and d <= 128 else "stream"
+    want = ("row" if NB * bs <= 64 and d <= 128 else
+            "wide" if d > 128 else "stream")
     assert taken == [want]
 
 
-@pytest.mark.parametrize("route", ["row", "stream", "routed"])
+@pytest.mark.parametrize("route", ["row", "stream", "wide", "routed"])
 def test_token_wrappers_refuse_cpu_tensors(route):
     q, k, v, idx, r, seg = _token_inputs()
     sfx = "" if route == "routed" else f"_{route}"
@@ -142,7 +146,7 @@ def test_token_wrappers_refuse_cpu_tensors(route):
     assert (kmosa.LAUNCHES.count, kmosa.LAUNCHES_FWD_RES.count) == before
 
 
-@pytest.mark.parametrize("route", ["row", "stream", "routed"])
+@pytest.mark.parametrize("route", ["row", "stream", "wide", "routed"])
 def test_block_wrappers_refuse_cpu_tensors(route):
     q, k, v, bidx, rblk, seg = _block_inputs()
     sfx = "" if route == "routed" else f"_{route}"

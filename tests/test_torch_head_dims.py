@@ -2,16 +2,21 @@
 
   * the paged wrappers (``paged_attention_cuda`` for decode #11,
     ``paged_prefill_attention_cuda`` for packed prefill #12) take any
-    1 <= d <= 128, as the JAX wrappers' ``_pad_lane`` does: d 16, 24, 48
-    and 96 reach the kernel at 32, 32, 64 and 128 with q and both pools
-    zero-padded on the last axis and the caller's scale, and the output
-    comes back sliced to d (the stub runs the plain version on what the
-    kernel would get: the padded columns change nothing);
+    1 <= d <= 256, as the JAX wrappers' ``_pad_lane`` does: d 16, 24, 48,
+    96 and 129-256 reach the kernel at 32, 32, 64, 128 and 256 with q and
+    both pools zero-padded on the last axis and the caller's scale, and the
+    output comes back sliced to d (the stub runs the plain version on what
+    the kernel would get: the padded columns change nothing);
   * at d in ``HEAD_DIMS`` the tensors reach the kernel as they are (no
     copy);
-  * at d 192 every kernel wrapper (paged, MoSA, block, flash) raises a
-    ``ValueError`` naming ROADMAP A.9, on any device.
+  * at d 160, 192 and 256 every kernel wrapper (paged, MoSA, block, flash)
+    passes the head-dim check and then refuses the CPU tensors (no
+    fallback); at d 320 each raises a ``ValueError`` naming ROADMAP C.2, on
+    any device.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ from test_torch_parity import one_cpu_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 PAD = {16: 32, 24: 32, 48: 64, 96: 128, 32: 32, 64: 64, 128: 128, 1: 32,
-       33: 64}
+       33: 64, 129: 256, 160: 256, 192: 256, 256: 256}
 
 
 def _pools(rng, N, bs, Hkv, d):
@@ -61,15 +66,16 @@ def _prefill_inputs(d, seed=1):
 
 
 def _recording(calls, plain):
-    def kernel(q, k_pool, v_pool, *args):
-        calls.append((q, k_pool, v_pool, args))
+    def kernel(q, k_pool, v_pool, *args, entry):
+        calls.append((q, k_pool, v_pool, args, entry))
         return plain(q, k_pool, v_pool, *args)
     return kernel
 
 
-def _check_padded(calls, d, inputs, scale):
-    (q, kp, vp, args), = calls
+def _check_padded(calls, d, inputs, scale, entry):
+    (q, kp, vp, args, got_entry), = calls
     w = PAD[d]
+    assert got_entry == entry + ("_wide" if w == 256 else "")
     for got, orig in zip((q, kp, vp), inputs):
         assert got.shape[-1] == w
         if w == d:
@@ -80,7 +86,8 @@ def _check_padded(calls, d, inputs, scale):
     assert args[-1] == scale                   # the caller's scale
 
 
-@pytest.mark.parametrize("d", [16, 24, 48, 96, 32, 64, 128, 1, 33])
+@pytest.mark.parametrize("d", [16, 24, 48, 96, 32, 64, 128, 1, 33, 129, 160,
+                               192, 256])
 def test_paged_decode_pads_to_the_kernel_width(monkeypatch, d):
     calls = []
     monkeypatch.setattr(kpaged, "_decode_kernel",
@@ -88,13 +95,15 @@ def test_paged_decode_pads_to_the_kernel_width(monkeypatch, d):
     q, kp, vp, table, lengths = _decode_inputs(d)
     scale = 0.37 * d ** -0.5
     out = kpaged.paged_attention_cuda(q, kp, vp, table, lengths, scale)
-    _check_padded(calls, d, (q, kp, vp), scale)
+    _check_padded(calls, d, (q, kp, vp), scale,
+                  "repro_paged_attention_decode")
     assert out.shape == q.shape
     want = kpaged.paged_attention_ref(q, kp, vp, table, lengths, scale)
     torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("d", [16, 24, 48, 96, 32, 64, 128, 1, 33])
+@pytest.mark.parametrize("d", [16, 24, 48, 96, 32, 64, 128, 1, 33, 129, 160,
+                               192, 256])
 def test_paged_prefill_pads_to_the_kernel_width(monkeypatch, d):
     calls = []
 
@@ -109,7 +118,8 @@ def test_paged_prefill_pads_to_the_kernel_width(monkeypatch, d):
     scale = 0.41 * d ** -0.5
     out = kpaged.paged_prefill_attention_cuda(q, kp, vp, table, cu, rows,
                                               past, scale)
-    _check_padded(calls, d, (q, kp, vp), scale)
+    _check_padded(calls, d, (q, kp, vp), scale,
+                  "repro_paged_prefill_attention")
     assert out.shape == q.shape
     torch.testing.assert_close(out, plain(q, kp, vp, table, cu, rows, past,
                                           scale), atol=1e-6, rtol=1e-6)
@@ -125,8 +135,8 @@ def test_padded_paged_wrappers_still_refuse_cpu_tensors(d):
         kpaged.paged_prefill_attention_cuda(*_prefill_inputs(d), 0.1)
 
 
-def _wide_calls():
-    d, B, H, S, T = 192, 1, 2, 8, 16
+def _wide_calls(d=192):
+    B, H, S, T = 1, 2, 8, 16
     q = torch.zeros(B, H, S, d)
     idx = torch.arange(S, dtype=torch.int32).expand(B, H, S).contiguous()
     r = torch.ones(B, H, S)
@@ -185,16 +195,61 @@ def _wide_calls():
     }
 
 
+@pytest.mark.parametrize("d", [160, 192, 256, 320])
 @pytest.mark.parametrize("name", sorted(_wide_calls()))
-def test_head_dim_over_128_raises_naming_a9(name):
-    with pytest.raises(ValueError, match="ROADMAP A.9"):
-        _wide_calls()[name]()
+def test_head_dim_over_128_raises_naming_a9(name, d):
+    """Heads over 128 (once refused naming ROADMAP A.9): at d 160, 192 and
+    256 the wrapper passes the head-dim check and refuses the CPU tensors
+    (no fallback); at d 320 it raises naming ROADMAP C.2."""
+    match = "ROADMAP C.2" if d > 256 else "needs CUDA tensors"
+    with pytest.raises(ValueError, match=match):
+        _wide_calls(d)[name]()
 
 
 def test_padded_head_dim():
-    assert [kpaged.padded_head_dim(d) for d in (1, 8, 16, 24, 32, 33, 48,
-                                                64, 65, 96, 128)] == \
-        [32, 32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
-    for d in (0, 129, 192, 256):
-        with pytest.raises(ValueError, match="ROADMAP A.9"):
+    assert [kpaged.padded_head_dim(d) for d in (
+        1, 8, 16, 24, 32, 33, 48, 64, 65, 96, 128, 129, 160, 192, 256)] == \
+        [32, 32, 32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256]
+    for d in (0, 257, 320):
+        with pytest.raises(ValueError, match="ROADMAP C.2"):
             kpaged.padded_head_dim(d)
+
+
+WIDE_SRC = (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / "wide_attention.cu")
+
+
+def _constant(name):
+    m = re.search(rf"constexpr int {name} = (\d+);", WIDE_SRC.read_text())
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_wide_kernels_fit_shared_memory(elem):
+    """The wide route's shared memory, from the source's constants (fp32
+    and bf16 rows padded to 260 and 264 elements): the forward and dq (K
+    and V tiles of 32 in two stages, the warps' rows), dk/dv (q tiles in T
+    and g~ tiles in fp32, two stages, the warps' k and v rows), each under
+    the 227 KB a block may hold on an H100, and over 48 KB (the launchers
+    raise the limit)."""
+    D, TK, W = _constant("kD"), _constant("kTK"), _constant("kWarps")
+    assert (D, TK, W) == (256, 32, 8)
+    stride = D + (4 if elem == 4 else 8)
+    fwd = elem * 4 * TK * stride + 4 * W * D + 4 * 6 * TK
+    dq = elem * 4 * TK * stride + 4 * 2 * W * D + 4 * 6 * TK
+    dkv = (elem * 2 * TK * stride + 4 * 2 * TK * (D + 4) + 4 * 2 * W * D
+           + 4 * 8 * TK)
+    for nbytes in (fwd, dq, dkv):
+        assert 48 * 1024 < nbytes <= 232448
+    assert stride * elem % 16 == 0        # 16-byte cp.async rows
+
+
+def test_every_family_has_a_wide_entry():
+    """Each of the 12 kernels' C entries has a ``_wide`` twin with its
+    signature, and the wide route's width is the wrappers' limit."""
+    from repro_torch.kernels import build
+    assert len(build.WIDE_ENTRIES) == 12
+    for name in build.WIDE_ENTRIES:
+        assert build.SIGNATURES[f"{name}_wide"] == build.SIGNATURES[name]
+        assert f'extern "C" int {name}_wide(' in WIDE_SRC.read_text()
+    assert build.MAX_HEAD_DIM == _constant("kD") == max(kpaged.HEAD_DIMS)
